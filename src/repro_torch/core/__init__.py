@@ -1,0 +1,18 @@
+"""HiCS-FL core of the port: estimator, clustering, sampling, selector."""
+from repro_torch.core.clustering import (agglomerate_device,
+                                         cluster_means_device)
+from repro_torch.core.hetero import (estimate_entropy,
+                                     head_bias_updates_stacked,
+                                     head_num_classes, label_entropy,
+                                     softmax_entropy)
+from repro_torch.core.sampling import (anneal_device, coverage_sweep_device,
+                                       hierarchical_sample_device)
+from repro_torch.core.selectors import (SelectNoise, SelectorState,
+                                        hics_functional)
+
+__all__ = ["agglomerate_device", "anneal_device", "cluster_means_device",
+           "coverage_sweep_device", "estimate_entropy",
+           "head_bias_updates_stacked", "head_num_classes",
+           "hics_functional", "hierarchical_sample_device",
+           "label_entropy", "SelectNoise", "SelectorState",
+           "softmax_entropy"]

@@ -1,0 +1,105 @@
+"""The functional selector protocol of the port: state tuple, pure
+transitions.
+
+    state = fn.init()
+    ids, state = fn.select(state, t, noise)
+    state = fn.update(state, t, ids, bias_updates)
+
+The port of the reference's ``core/selectors/functional.py`` for the
+fields HiCS-FL reads.  Every field is a tensor on the server's device.
+Randomness is an input: ``select`` takes the round's
+:class:`SelectNoise`, which the server draws in one place per round.
+Transitions return new tensors and never write into the state they
+were given.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+
+class SelectNoise(NamedTuple):
+    """One round's standard Gumbel draws (f32): the coverage sweep's
+    ``cover`` (N,), and per two-stage draw i the cluster stage's
+    ``cluster[i]`` (M,) and the client stage's ``client[i]`` (N,)."""
+    cover: torch.Tensor       # (N,)
+    cluster: torch.Tensor     # (K, M)
+    client: torch.Tensor      # (K, N)
+
+
+class SelectorState(NamedTuple):
+    weights: torch.Tensor       # (N,) normalized p_k
+    seen: torch.Tensor          # (N,) bool — coverage pool complement
+    unseen_count: torch.Tensor  # () int32
+    delta_b: torch.Tensor       # (N, C) Δb buffer
+    dist_cache: torch.Tensor    # (N, N) cached Eq. 9 distance, or (N, 0)
+    row_stats: torch.Tensor     # (N, 2) cached [L2 norm, Ĥ], or (N, 0)
+    stale_ids: torch.Tensor     # (L,) int32 ring of staled rows, or (0,)
+    stale_fill: torch.Tensor    # () int32 — ids appended since refresh
+
+
+class FunctionalSelector(NamedTuple):
+    name: str
+    init: Callable[[], SelectorState]
+    select: Callable[..., tuple]          # (state, t, noise) -> (ids, state)
+    update: Callable[..., SelectorState]  # (state, t, ids, Δb) -> state
+    #: (state) -> (N,) Ĥ
+    entropies: Optional[Callable[[SelectorState], torch.Tensor]] = None
+
+
+def init_state(num_clients: int, weights=None, num_classes: int = 0,
+               dist_cache: bool = False, stale_len: int = 0,
+               device="cuda") -> SelectorState:
+    """A fresh state.  ``weights`` are normalized in f64 and again in
+    f32, as the reference's shim and ``init_state`` do."""
+    n = int(num_clients)
+    if weights is None:
+        w = torch.ones(n, dtype=torch.float32)
+    else:
+        w64 = torch.as_tensor(weights, dtype=torch.float64)
+        w = (w64 / w64.sum()).float()
+    w = (w / w.sum()).to(device)
+    z32 = torch.zeros((), dtype=torch.int32, device=device)
+    return SelectorState(
+        weights=w,
+        seen=torch.zeros(n, dtype=torch.bool, device=device),
+        unseen_count=torch.tensor(n, dtype=torch.int32, device=device),
+        delta_b=torch.zeros((n, int(num_classes)), device=device),
+        dist_cache=torch.zeros((n, n if dist_cache else 0), device=device),
+        row_stats=torch.zeros((n, 2 if dist_cache else 0), device=device),
+        stale_ids=torch.zeros(int(stale_len), dtype=torch.int32,
+                              device=device),
+        stale_fill=z32,
+    )
+
+
+def mark_seen(state: SelectorState, ids: torch.Tensor) -> SelectorState:
+    """Fold ``ids`` into the coverage pool (idempotent)."""
+    seen = state.seen.index_fill(0, ids.long(), True)
+    return state._replace(seen=seen,
+                          unseen_count=(~seen).sum().to(torch.int32))
+
+
+def stale_append(state: SelectorState, ids: torch.Tensor) -> SelectorState:
+    """Append ``ids`` to the ring of staled rows the next refresh must
+    cover; appends land at ``stale_fill mod L`` onward."""
+    ids = ids.reshape(-1).to(torch.int32)
+    kk, ring = ids.shape[0], state.stale_ids.shape[0]
+    if kk == 0:
+        return state
+    if kk > ring:
+        raise ValueError(
+            f"incremental selector's staleness ring holds {ring} ids but "
+            f"one update staled {kk}")
+    pos = torch.remainder(
+        state.stale_fill + torch.arange(kk, dtype=torch.int32,
+                                        device=ids.device), ring)
+    stale_ids = state.stale_ids.index_copy(0, pos.long(), ids)
+    return state._replace(stale_ids=stale_ids,
+                          stale_fill=state.stale_fill + kk)
+
+
+def stale_clear(state: SelectorState) -> SelectorState:
+    """Reset the staleness counter after a refresh covered the ring."""
+    return state._replace(stale_fill=torch.zeros_like(state.stale_fill))

@@ -1,0 +1,98 @@
+"""HiCS-FL (Algorithm 1) as a functional triple.
+
+While the coverage pool is not empty: a uniform sweep without
+replacement (Alg. 1 lines 14-15).  Afterwards: ward clustering into
+M = K groups on the Eq. 9 distance and the two-stage Eq. 10 sampler.
+
+* ``incremental=True`` (default) keeps a cached (N, N) distance and
+  (N, 2) [norm, Ĥ] stats; ``select`` first refreshes the rows that
+  ``update`` staled (``hics_selection_step_cached``, the strip
+  kernel), O(K·N·C) per round.
+* ``incremental=False`` rebuilds the matrix each clustered round
+  (``hics_selection_step``, the pairwise kernel), O(N²·C).
+
+Both run on the state's device: the CUDA kernels on the card, the
+plain versions on the CPU.  The two branch tests read one scalar each
+from the device per round.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.clustering import (agglomerate_device,
+                                         cluster_means_device)
+from repro_torch.core.hetero import estimate_entropy
+from repro_torch.core.sampling import (anneal_device, coverage_sweep_device,
+                                       hierarchical_sample_device)
+from repro_torch.core.selectors.functional import (FunctionalSelector,
+                                                   SelectNoise,
+                                                   SelectorState,
+                                                   init_state, mark_seen,
+                                                   stale_append,
+                                                   stale_clear)
+from repro_torch.kernels import ops
+
+
+def hics_functional(num_clients: int, num_select: int, total_rounds: int,
+                    weights=None, temperature: float = 0.0025,
+                    lam: float = 10.0, gamma0: float = 4.0,
+                    normalize: bool = False, num_classes: int = 1,
+                    incremental: bool = True,
+                    device="cuda") -> FunctionalSelector:
+    n = int(num_clients)
+    k = min(int(num_select), n)
+    temperature, lam, gamma0 = float(temperature), float(lam), float(gamma0)
+    tr = float(total_rounds)
+    num_classes = max(1, int(num_classes))
+    device = torch.device(device)
+
+    def init() -> SelectorState:
+        return init_state(n, weights, num_classes=num_classes,
+                          dist_cache=incremental,
+                          stale_len=k if incremental else 0,
+                          device=device)
+
+    def select(state: SelectorState, t: int, noise: SelectNoise):
+        if incremental:
+            if int(state.stale_fill) > 0:
+                _, dist_c, stats_c = ops.hics_selection_step_cached(
+                    state.delta_b, state.dist_cache, state.row_stats,
+                    state.stale_ids, temperature, lam=lam,
+                    normalize=normalize, device=device)
+                state = state._replace(dist_cache=dist_c,
+                                       row_stats=stats_c)
+            state = stale_clear(state)
+        if int(state.unseen_count) > 0:
+            ids = coverage_sweep_device(noise.cover, state.seen, k)
+            return ids.to(torch.int32), mark_seen(state, ids)
+        if incremental:
+            ent, dist = state.row_stats[:, 1], state.dist_cache
+        else:
+            ent, dist = ops.hics_selection_step(
+                state.delta_b, temperature, lam=lam, normalize=normalize,
+                device=device)
+        # the cache scatter and the pairwise kernel keep the matrix
+        # exactly symmetric, so clustering skips re-symmetrizing
+        labels = agglomerate_device(dist, k, precomputed=True)
+        means = cluster_means_device(ent, labels, k)
+        gamma_t = anneal_device(gamma0, t, tr, device=device)
+        ids = hierarchical_sample_device(noise.cluster, noise.client,
+                                         labels, means, state.weights, k,
+                                         gamma_t)
+        return ids, state
+
+    def update(state: SelectorState, t: int, ids: torch.Tensor,
+               bias_updates: torch.Tensor) -> SelectorState:
+        db = state.delta_b.index_copy(0, ids.long(),
+                                      bias_updates.to(state.delta_b.dtype))
+        state = mark_seen(state._replace(delta_b=db), ids)
+        if incremental:
+            state = stale_append(state, ids)    # next select refreshes
+        return state
+
+    def entropies(state: SelectorState) -> torch.Tensor:
+        return estimate_entropy(state.delta_b, temperature,
+                                normalize=normalize)
+
+    return FunctionalSelector("hics", init, select, update,
+                              entropies=entropies)

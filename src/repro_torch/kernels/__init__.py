@@ -1,0 +1,18 @@
+"""Hand-written CUDA kernels of the port and their plain versions.
+
+  fused_stats  — single-sweep Ĥ + L2 norm + RMS over (N, C)
+  gram_update  — K×N Eq. 9 strip for the incremental distance cache
+  pairwise     — full (N, N) Eq. 9 matrix
+  ref          — plain PyTorch versions (the CPU path and the oracle)
+  build        — nvcc build of ``csrc/*.cu`` and the ctypes binding
+  ops          — the public API, with an explicit device
+
+Importing this package needs neither nvcc nor a card: a kernel is
+built and loaded at its first launch.
+"""
+from repro_torch.kernels.ops import (fused_row_stats, hics_selection_step,
+                                     hics_selection_step_cached,
+                                     pairwise_distances)
+
+__all__ = ["fused_row_stats", "hics_selection_step",
+           "hics_selection_step_cached", "pairwise_distances"]

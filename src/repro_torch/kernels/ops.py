@@ -1,0 +1,62 @@
+"""Public kernel API of the port, with an explicit device.
+
+    fused_row_stats(updates, T)             (N, C) -> (Ĥ, norm, RMS)
+    hics_selection_step(updates, T, lam)    (N, C) -> (Ĥ (N,), D (N, N))
+    hics_selection_step_cached(...)         K-row incremental refresh
+    pairwise_distances(updates, T, lam)     (N, C) -> (N, N)   [Eq. 9]
+
+Each takes ``device`` (default ``"cuda"``) and the tensors must lie on
+it.  On ``"cpu"`` the plain PyTorch versions run; on ``"cuda"`` the
+hand-written kernels run or the call raises.  Asking for the card on a
+machine without one raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.backend import resolve_device
+from repro_torch.kernels import fused_stats, gram_update, pairwise
+
+
+def _on(device, *tensors: torch.Tensor) -> None:
+    dev = resolve_device(device)
+    for t in tensors:
+        if t.device.type != dev.type:
+            raise ValueError(f"tensor on {t.device}, but device={dev}")
+
+
+def fused_row_stats(updates: torch.Tensor, temperature: float, *,
+                    device="cuda"):
+    """(Ĥ, |Δb|₂, RMS) per client in one sweep over (N, C)."""
+    _on(device, updates)
+    return fused_stats.fused_stats(updates, temperature)
+
+
+def hics_selection_step(updates: torch.Tensor, temperature: float,
+                        lam: float = 10.0, normalize: bool = False, *,
+                        device="cuda"):
+    """(N, C) Δb -> (Ĥ (N,), Eq. 9 distance (N, N)), from scratch."""
+    _on(device, updates)
+    return pairwise.hics_selection_step(updates, temperature, lam=lam,
+                                        normalize=normalize)
+
+
+def hics_selection_step_cached(updates: torch.Tensor, dist: torch.Tensor,
+                               stats: torch.Tensor, ids: torch.Tensor,
+                               temperature: float, lam: float = 10.0,
+                               normalize: bool = False, *,
+                               device="cuda"):
+    """(N, C) Δb, cached (dist (N, N), stats (N, 2) = [norm, Ĥ]), (K,)
+    refreshed ids -> (Ĥ (N,), dist, stats).  Only the rows and columns
+    of ``ids`` are recomputed: O(K·N·C) instead of O(N²·C)."""
+    _on(device, updates, dist, stats, ids)
+    return gram_update.cached_selection_step(
+        updates, dist, stats, ids, temperature, lam=lam,
+        normalize=normalize)
+
+
+def pairwise_distances(updates: torch.Tensor, temperature: float,
+                       lam: float = 10.0, *, device="cuda"):
+    """Full Eq. 9 matrix: fused stats, then the pairwise kernel."""
+    _on(device, updates)
+    return pairwise.hics_selection_step(updates, temperature, lam=lam)[1]

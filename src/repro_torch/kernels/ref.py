@@ -1,0 +1,116 @@
+"""Plain PyTorch versions of the selection kernels.
+
+These are the semantics contract of the port, as ``kernels/ref.py`` is
+the reference's: each function repeats the reference oracle's
+arithmetic in its order (unit rows built before the dot product), and
+runs on any device.  The kernel wrappers take them for a tensor that
+lies on the CPU, and ``chip_smoke.py`` holds each CUDA kernel against
+them on the card.  The kernels divide after the dot product instead,
+so a kernel and its plain version agree to f32 tolerance, not bit for
+bit.
+"""
+from __future__ import annotations
+
+import torch
+
+#: cosine clip bounds of Eq. 9, as f32 (the reference's weak-typed
+#: python floats become the same f32 constants)
+COS_LO = -1.0 + 1e-7
+COS_HI = 1.0 - 1e-7
+
+
+def entropy_ref(updates: torch.Tensor, temperature: float) -> torch.Tensor:
+    """H(softmax(v / T)) row-wise.  updates: (N, C) -> (N,) f32."""
+    u = updates.float() / temperature
+    u = u - u.max(dim=-1, keepdim=True).values
+    e = torch.exp(u)
+    z = e.sum(dim=-1)
+    s = (e * u).sum(dim=-1)
+    return torch.log(z) - s / z
+
+
+def fused_stats_ref(updates: torch.Tensor, temperature: float,
+                    row_scale: torch.Tensor | None = None):
+    """(N, C) -> (entropy, l2 norm, rms), each (N,) f32.  ``row_scale``
+    (N,) multiplies each row before the tempered softmax; norm and RMS
+    are always of the raw rows."""
+    x = updates.float()
+    scaled = x if row_scale is None else x * row_scale.float()[:, None]
+    ent = entropy_ref(scaled, temperature)
+    sumsq = (x * x).sum(dim=-1)
+    return ent, torch.sqrt(sumsq), torch.sqrt(sumsq / x.shape[-1])
+
+
+def row_entropy(rows: torch.Tensor, temperature: float,
+                normalize: bool) -> torch.Tensor:
+    """Ĥ of each row; ``normalize`` RMS-normalizes the rows first."""
+    if normalize:
+        rms = torch.sqrt((rows * rows).mean(dim=-1, keepdim=True))
+        return entropy_ref(rows / torch.clamp(rms, min=1e-12), temperature)
+    return entropy_ref(rows, temperature)
+
+
+def pairwise_distance_ref(updates: torch.Tensor, entropies: torch.Tensor,
+                          lam: float, eps: float = 1e-8) -> torch.Tensor:
+    """Eq. 9 distance matrix.  updates (N, C), entropies (N,) -> (N, N)."""
+    x = updates.float()
+    norms = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    unit = x / torch.clamp(norms, min=eps)
+    cos = torch.clamp(unit @ unit.T, COS_LO, COS_HI)
+    eye = torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
+    ang = torch.arccos(cos) * (1.0 - eye)
+    h = entropies.float()
+    return ang + lam * torch.abs(h[:, None] - h[None, :])
+
+
+def selection_step_ref(updates: torch.Tensor, temperature: float,
+                       lam: float, normalize: bool = False):
+    """(N, C) -> (Ĥ (N,), Eq. 9 D (N, N)), from scratch."""
+    x = updates.float()
+    h = row_entropy(x, temperature, normalize)
+    return h, pairwise_distance_ref(x, h, lam)
+
+
+def distance_strip_ref(updates: torch.Tensor, stats: torch.Tensor,
+                       ids: torch.Tensor, lam: float,
+                       eps: float = 1e-8) -> torch.Tensor:
+    """(N, C), (N, 2) current [norm, Ĥ], (K,) ids -> (K, N) Eq. 9
+    strip (arccos epilogue).  Unit rows use the cached norms; the true
+    diagonal is zeroed."""
+    x = updates.float()
+    unit = x / torch.clamp(stats[:, 0:1], min=eps)
+    cos = torch.clamp(unit[ids] @ unit.T, COS_LO, COS_HI)
+    d = torch.arccos(cos)
+    cols = torch.arange(x.shape[0], device=x.device)
+    d = torch.where(ids[:, None] == cols[None, :], 0.0, d)
+    return d + lam * torch.abs(stats[ids, 1][:, None] - stats[None, :, 1])
+
+
+def scatter_strip(dist: torch.Tensor, strip: torch.Tensor,
+                  ids: torch.Tensor) -> torch.Tensor:
+    """Write a (K, N) strip into rows AND columns ``ids`` of a copy of
+    ``dist``.  The K×K block ends up holding the column write, so the
+    result is exactly symmetric whenever the strip's K×K block is."""
+    out = dist.clone()
+    out[ids] = strip
+    out[:, ids] = strip.T
+    return out
+
+
+def cached_selection_step_ref(updates: torch.Tensor, dist: torch.Tensor,
+                              stats: torch.Tensor, ids: torch.Tensor,
+                              temperature: float, lam: float,
+                              normalize: bool = False, eps: float = 1e-8):
+    """Incremental step: refresh the rows/cols of ``ids`` in the cached
+    ``dist`` (N, N) and ``stats`` (N, 2) = [norm, Ĥ].  Returns
+    (Ĥ (N,), dist, stats).  K = 0 returns the cache unchanged."""
+    if ids.numel() == 0:
+        return stats[:, 1], dist, stats
+    x = updates.float()
+    rows = x[ids]
+    h_rows = row_entropy(rows, temperature, normalize)
+    n_rows = torch.linalg.vector_norm(rows, dim=-1)
+    stats = stats.clone()
+    stats[ids] = torch.stack([n_rows, h_rows], dim=-1)
+    strip = distance_strip_ref(x, stats, ids, lam, eps=eps)
+    return stats[:, 1], scatter_strip(dist, strip, ids), stats

@@ -1,0 +1,203 @@
+"""The port's HiCS-FL core against the JAX reference: estimator,
+head Δb extraction, clustering, the device samplers, and a 20-round
+select/update sequence of the functional HiCS selector.
+
+Inputs come from seeded numpy; the samplers' Gumbel noise is replayed
+from the keys the reference draws with.  Ĥ is held to 5e-5; cluster
+labels and sampled ids must be identical.  Each test loops over its
+cases (``torch_parity.each``).
+"""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from repro.core import clustering as jclust
+from repro.core import hetero as jhet
+from repro.core import sampling as jsamp
+from repro.core.selectors.functional import Observations
+from repro.core.selectors.hics import hics_functional as jax_hics
+from repro_torch.core import (agglomerate_device, anneal_device,
+                              cluster_means_device, coverage_sweep_device,
+                              estimate_entropy, head_bias_updates_stacked,
+                              head_num_classes, hics_functional,
+                              hierarchical_sample_device, label_entropy)
+from torch_parity import each, select_noise
+
+def test_estimate_entropy_matches_jax():
+    each(_entropy_case, [False, True], [0.63, 0.05])
+
+
+def _entropy_case(normalize, temperature):
+    db = (np.random.default_rng(0).normal(size=(30, 10)) * 0.05
+          ).astype(np.float32)
+    got = estimate_entropy(torch.tensor(db), temperature,
+                           normalize=normalize)
+    want = jhet.estimate_entropy(jnp.asarray(db), temperature,
+                                 normalize=normalize)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5)
+
+
+def test_label_entropy_matches_jax():
+    r = np.random.default_rng(1)
+    dists = np.stack([r.dirichlet(np.full(10, a)) for a in
+                      (0.01, 0.1, 1.0, 10.0)] + [np.eye(10)[3]])
+    got = label_entropy(torch.tensor(dists, dtype=torch.float32))
+    want = jhet.label_entropy(jnp.asarray(dists, jnp.float32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5)
+
+
+def test_head_bias_updates_stacked_matches_jax():
+    each(_head_case, ["bias", "weight"])
+
+
+def _head_case(head):
+    r = np.random.default_rng(2)
+    before = {"fc": {"w": r.normal(size=(6, 8)), "b": r.normal(size=8)},
+              "lm_head": {"w": r.normal(size=(8, 10)),
+                          "b": r.normal(size=10)}}
+    after = {k: {kk: r.normal(size=(3,) + v.shape) for kk, v in p.items()}
+             for k, p in before.items()}
+    if head == "weight":
+        del before["lm_head"]["b"], after["lm_head"]["b"]
+
+    def tree(t, conv):
+        return {k: {kk: conv(np.asarray(v, np.float32))
+                    for kk, v in p.items()} for k, p in t.items()}
+
+    got = head_bias_updates_stacked(tree(before, torch.tensor),
+                                    tree(after, torch.tensor))
+    want = jhet.head_bias_updates_stacked(tree(before, jnp.asarray),
+                                          tree(after, jnp.asarray))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    assert head_num_classes(tree(before, torch.tensor)) == 10
+    assert head_bias_updates_stacked({"fc": {}}, {"fc": {}}) is None
+
+
+def _sym(n, seed):
+    a = np.random.default_rng(seed).uniform(0.1, 3.0, size=(n, n))
+    d = (a + a.T).astype(np.float32)
+    np.fill_diagonal(d, 0.0)
+    return d
+
+
+def _tied(n, seed):
+    """Small integer distances: many exact ties, exact arithmetic."""
+    a = np.random.default_rng(seed).integers(1, 4, size=(n, n))
+    d = np.triu(a, 1)
+    return (d + d.T).astype(np.float32)
+
+
+def test_agglomerate_labels_identical():
+    """Random and tied matrices, ward linkage."""
+    each(_agglomerate_case, [_sym, _tied], [(50, 5), (12, 3), (7, 7)])
+
+
+def _agglomerate_case(make, shape):
+    n, m = shape
+    d = make(n, seed=n + m)
+    for precomputed in (False, True):
+        got = agglomerate_device(torch.tensor(d), m,
+                                 precomputed=precomputed)
+        want = jclust.agglomerate_device(jnp.asarray(d), m, linkage="ward",
+                                         precomputed=precomputed)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.dtype == torch.int32
+
+
+def test_cluster_means_matches_jax():
+    r = np.random.default_rng(3)
+    vals = r.normal(size=20).astype(np.float32)
+    labels = np.array([0, 1, 1, 3] * 5, np.int32)        # cluster 2 empty
+    got = cluster_means_device(torch.tensor(vals), torch.tensor(labels), 4)
+    want = jclust.cluster_means_device(jnp.asarray(vals),
+                                       jnp.asarray(labels), 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    assert float(got[2]) == 0.0
+
+
+def test_anneal_matches_jax():
+    for t in (0, 7, 30, 50):
+        got = anneal_device(4.0, t, 30.0)
+        want = jsamp.anneal_device(4.0, jnp.int32(t), 30.0)
+        assert float(got) == float(want), t
+
+
+def test_coverage_sweep_ids_identical():
+    """Same Gumbel draws, same ids — including the ties that the 1e6
+    offset's 0.0625 f32 grid makes common."""
+    each(_coverage_case, range(6), [(50, 5), (12, 3), (4, 6)])
+
+
+def _coverage_case(seed, shape):
+    n, k = shape
+    key = jax.random.PRNGKey(seed)
+    seen = np.random.default_rng(seed).random(n) < 0.6
+    noise = select_noise(key, n, k, 1)
+    got = coverage_sweep_device(noise.cover, torch.tensor(seen), k)
+    want = jsamp.coverage_sweep_device(key, jnp.asarray(seen), k)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_hierarchical_sample_ids_identical():
+    each(_hierarchical_case, range(6), [(50, 5, 5), (12, 3, 3), (9, 4, 2)])
+
+
+def _hierarchical_case(seed, shape):
+    n, k, m = shape
+    r = np.random.default_rng(seed)
+    labels = np.concatenate([np.arange(m), r.integers(0, m, n - m)]
+                            ).astype(np.int32)
+    means = r.uniform(0.0, 2.3, m).astype(np.float32)
+    weights = r.uniform(0.0, 1.0, n).astype(np.float32)
+    weights[r.integers(n)] = 0.0                          # log floor
+    gamma_t = 4.0 * (1 - seed / 6)
+    key = jax.random.PRNGKey(100 + seed)
+    noise = select_noise(key, n, k, m)
+    got = hierarchical_sample_device(
+        noise.cluster, noise.client, torch.tensor(labels),
+        torch.tensor(means), torch.tensor(weights), k,
+        torch.tensor(gamma_t, dtype=torch.float32))
+    want = jsamp.hierarchical_sample_device(
+        key, jnp.asarray(labels), jnp.asarray(means), jnp.asarray(weights),
+        k, jnp.float32(gamma_t))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert len(set(got.tolist())) == k
+
+
+@pytest.mark.parametrize("incremental", [True, False])
+def test_hics_functional_20_rounds_identical(incremental):
+    """A 20-round select/update sequence with the same Δb and noise
+    picks the same participants in both packages."""
+    n, k, c, rounds = 20, 4, 10, 20
+    r = np.random.default_rng(4)
+    weights = r.integers(5, 50, n).astype(np.float64)
+    kw = dict(num_clients=n, num_select=k, total_rounds=rounds,
+              weights=weights / weights.sum(), temperature=0.63,
+              gamma0=4.0, normalize=True, num_classes=c,
+              incremental=incremental)
+    jfn = jax_hics(**kw)
+    jstate = jfn.init(jax.random.PRNGKey(0))
+    jselect, jupdate = jax.jit(jfn.select), jax.jit(jfn.update)
+    tfn = hics_functional(**kw, device="cpu")
+    tstate = tfn.init()
+    key = jax.random.PRNGKey(1)
+    for t in range(rounds):
+        key, k_sel = jax.random.split(key)
+        jids, jstate = jselect(jstate, t, k_sel)
+        tids, tstate = tfn.select(tstate, t, select_noise(k_sel, n, k, k))
+        np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+        db = (r.normal(size=(k, c)) * 0.05).astype(np.float32)
+        jstate = jupdate(jstate, t, jids, Observations(
+            bias_updates=jnp.asarray(db)))
+        tstate = tfn.update(tstate, t, tids, torch.tensor(db))
+    np.testing.assert_allclose(tfn.entropies(tstate).numpy(),
+                               np.asarray(jfn.entropies(jstate)),
+                               atol=5e-5)
+    if incremental:
+        np.testing.assert_allclose(tstate.dist_cache.numpy(),
+                                   np.asarray(jstate.dist_cache),
+                                   atol=1e-5, rtol=1e-5)
+        assert torch.equal(tstate.dist_cache, tstate.dist_cache.T)

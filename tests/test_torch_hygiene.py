@@ -1,0 +1,107 @@
+"""Rules of the PyTorch port that no parity test would catch.
+
+* The port and ``chip_smoke.py`` import neither JAX nor anything of
+  the JAX package ``repro``.
+* The kernel modules import without ``triton`` and without ``nvcc``.
+* Entry points default to the card: called with no device on a
+  machine without CUDA they raise instead of running on the CPU.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_jax_and_no_reference_imports():
+    files = _port_files()
+    assert len(files) > 20 and all(p.exists() for p in files)
+    bad = [f"{p.relative_to(ROOT)} imports {mod}" for p in files
+           for mod in _imported_modules(p)
+           if mod.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
+def test_kernel_modules_import_without_triton_or_nvcc(tmp_path):
+    """A fresh interpreter with ``triton`` blocked and no ``nvcc`` on
+    PATH imports every kernel module and builds nothing."""
+    code = (
+        "import sys\n"
+        "sys.modules['triton'] = None\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
+        "import repro_torch.kernels.fused_stats\n"
+        "import repro_torch.kernels.gram_update\n"
+        "import repro_torch.kernels.pairwise\n"
+        "from repro_torch.kernels import build\n"
+        "import repro_torch.fed, repro_torch.core\n"
+        "assert build._loaded == {} and not any(build.launches.values())\n"
+        "print('ok')\n")
+    env = dict(os.environ, PATH=str(tmp_path),
+               PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_build_without_device_raises_without_cuda(no_cuda):
+    from repro_torch.fed import ExperimentSpec, build
+    spec = ExperimentSpec(num_clients=4, num_select=2, rounds=1,
+                          samples_train=40, samples_test=10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(spec)
+
+
+def test_ops_without_device_raise_without_cuda(no_cuda):
+    from repro_torch.kernels import ops
+    x = torch.zeros(4, 10)
+    calls = [
+        lambda: ops.fused_row_stats(x, 0.63),
+        lambda: ops.hics_selection_step(x, 0.63),
+        lambda: ops.pairwise_distances(x, 0.63),
+        lambda: ops.hics_selection_step_cached(
+            x, torch.zeros(4, 4), torch.zeros(4, 2),
+            torch.arange(2), 0.63),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_at_launch():
+    """The raw launch functions never run on the CPU: a CPU tensor is
+    refused before any library is built or loaded."""
+    from repro_torch.kernels.fused_stats import fused_stats_rows
+    from repro_torch.kernels.gram_update import gram_strip
+    from repro_torch.kernels.pairwise import pairwise
+    x = torch.zeros(4, 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_stats_rows(x, torch.ones(4))
+    with pytest.raises(ValueError, match="CUDA"):
+        gram_strip(x[:2], x, torch.ones(2, 2), torch.ones(4, 2),
+                   torch.zeros(2, dtype=torch.int32), 10.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        pairwise(x, torch.ones(4, 2), 10.0)
