@@ -10,15 +10,23 @@ the card and holds its first rounds against the port's own CPU run,
 then checks the incremental cache on the run's final Δb against the
 pairwise kernel and the plain version, drives the from-scratch path
 (pairwise kernel) in a second run, and holds one more clustered select
-of each run against the plain versions on the CPU.  Prints one JSON line per phase, one
-``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
-Exits non-zero, with no result line, without a CUDA device or when any
-check fails.
+of each run against the plain versions on the CPU.  Then the serving
+slice: the two LM kernels (hetero_entropy, decode_attention) against
+their plain versions, the entropy kernel's path through
+``ops.estimate_entropies``, qwen2.5-3b at full width and depth through
+the serve entry point (batch 4, prompt 64, 32 greedy tokens, beside
+its byte bound), the decode kernel on the live bf16 cache, and the same
+weights cut to two layers on the card against the port's CPU run.
+Prints one JSON line per phase, one ``{"kernels": [...]}`` line and,
+last, ``{"ok": true, "device": ...}``.  Exits non-zero, with no result
+line, without a CUDA device or when any check fails.
 
 Tolerances (kernel vs plain version, and cache vs from scratch): Ĥ to
 5e-5 at T = 0.63 and 1e-3 at T = 0.0025 (1/T amplifies f32 rounding);
 norms and distances to 1e-5 absolute plus 1e-5 relative (the λ = 10
 entropy term carries Ĥ's last-bit rounding into distances near 4).
+The serving kernels and the parity phase state theirs beside each
+check, at the reference's own kernel tolerances.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import SHAPES  # noqa: E402
 from repro_torch.core import (agglomerate_device,  # noqa: E402
                               hics_functional)
 from repro_torch.data import SyntheticSpec  # noqa: E402
@@ -43,6 +52,11 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.fused_stats import fused_stats_rows  # noqa: E402
 from repro_torch.kernels.gram_update import gram_strip  # noqa: E402
 from repro_torch.kernels.pairwise import pairwise  # noqa: E402
+from repro_torch.kernels.hetero_entropy import entropy_rows  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_kernel)
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
 
 LAM = 10.0
 T_SLICE = 0.63
@@ -67,6 +81,10 @@ KERNELS = {
                     "src/repro/kernels/gram_update.py:61"),
     "pairwise": ("src/repro_torch/kernels/csrc/pairwise.cu",
                  "src/repro/kernels/pairwise.py:34"),
+    "hetero_entropy": ("src/repro_torch/kernels/csrc/hetero_entropy.cu",
+                       "src/repro/kernels/hetero_entropy.py:32"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:30"),
 }
 
 failures: list = []
@@ -413,6 +431,365 @@ def from_scratch_phase(server, hist, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# serving: the two LM kernels, qwen2.5-3b at full width, and parity
+# ---------------------------------------------------------------------------
+
+T_ENT = 0.0025
+SERVE_ARGV = ["--arch", "qwen2.5-3b", "--full", "--batch", "4",
+              "--prompt-len", "64", "--gen", "32", "--seed", "0"]
+PARITY_LAYERS = 2
+PARITY_PREFILL_TOL = 1e-3
+PARITY_DECODE_TOL = 5e-2
+
+
+def time_ms_rotating(fns, iters: int = 48) -> float:
+    """Mean device time of a call cycling through ``fns``, closures
+    over distinct input copies that together exceed the 50 MB L2, so
+    each call finds its input in device memory, as a caller would."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def entropy_case(n, c, dtype, dev, scale=0.02, timed=False):
+    """hetero_entropy on (n, c) against its plain version at T = 0.0025:
+    5e-5 absolute and relative for f32, 5e-3 for bf16; 0.05 absolute at
+    magnitude 500 (f32 rounding of u - m at |u| ~ 2e5)."""
+    gen = torch.Generator(device=dev).manual_seed(n + c)
+    x = (torch.randn((n, c), generator=gen, device=dev) * scale).to(dtype)
+    got = entropy_rows(x, T_ENT)
+    want = ref.entropy_ref(x, T_ENT)
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    tag = f"hetero_entropy({n},{c},{dt},scale={scale})"
+    if scale >= 100:
+        err = check(tag, got, want, 0.05)
+    else:
+        tol = 5e-5 if dtype == torch.float32 else 5e-3
+        err = check(tag, got, want, tol, tol)
+    out = {"case": tag, "max_abs_err": err}
+    if timed:
+        elt = x.element_size()
+        copies = [x] + [x.clone() for _ in range(
+            int(np.ceil(60e6 / x.nbytes)))]
+        out["ms"] = time_ms_rotating(
+            [lambda x=x: entropy_rows(x, T_ENT) for x in copies])
+        out["plain_ms"] = time_ms_rotating(
+            [lambda x=x: ref.entropy_ref(x, T_ENT) for x in copies])
+        # read x once, write n floats; per element a divide, a max, a
+        # subtract, an exp, an add and an fma
+        out["bound_ms"], out["bound_by"] = bound(elt * n * c + 4 * n,
+                                                 6 * n * c)
+        out["library_ms"] = None   # no single PyTorch call computes it
+    return out
+
+
+def decode_case(b, h, kv, dh, s, kv_dtype, dev, lengths=None, timed=False):
+    """decode_attention on q (b, h, dh) f32 and a (b, s, kv, dh) cache
+    against its plain version: 5e-5 absolute and relative for f32 and
+    bf16 K/V alike (both sides widen the same bf16 bits exactly and
+    compute in f32, so only the order of the sums differs); ragged
+    lengths 1e-4 absolute, and a length-1 row equal to v[:, 0] of its
+    KV head."""
+    gen = torch.Generator(device=dev).manual_seed(b * s + h)
+    q = torch.randn((b, h, dh), generator=gen, device=dev)
+    k = torch.randn((b, s, kv, dh), generator=gen, device=dev,
+                    dtype=kv_dtype)
+    v = torch.randn((b, s, kv, dh), generator=gen, device=dev,
+                    dtype=kv_dtype)
+    lens_list = lengths or [s] * b
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    scale = dh ** -0.5
+    got = decode_attention_kernel(q, k, v, lens, scale)
+    want = ref.decode_attention_ref(q, k, v, lens)
+    dt = "bf16" if kv_dtype == torch.bfloat16 else "f32"
+    tag = f"decode_attention(B{b},H{h},KV{kv},dh{dh},S{s},{dt}" + (
+        f",lengths={lengths})" if lengths else ")")
+    if lengths:
+        err = check(tag, got, want, 1e-4)
+        g = h // kv
+        for i, n in enumerate(lengths):
+            if n == 1:
+                first = v[i, 0].float()[:, None, :].expand(kv, g, dh)
+                err = max(err, check(tag + f".row{i}=v0",
+                                     got[i].reshape(kv, g, dh), first,
+                                     1e-4))
+    else:
+        err = check(tag, got, want, 5e-5, 5e-5)
+    out = {"case": tag, "max_abs_err": err}
+    if timed:
+        out["ms"] = time_ms(lambda: decode_attention_kernel(q, k, v, lens,
+                                                            scale), 20)
+        out["plain_ms"] = time_ms(
+            lambda: ref.decode_attention_ref(q, k, v, lens), 5)
+        valid = sum(min(n, s) for n in lens_list)
+        # q and out once, the valid K/V rows once; per valid position
+        # and query head a dh-long dot product and a dh-long p·v, plus
+        # ~5 operations of softmax
+        out["bound_ms"], out["bound_by"] = bound(
+            8 * b * h * dh + 4 * b + 2 * valid * kv * dh * k.element_size(),
+            valid * h * (4 * dh + 5))
+        out.update(library_case(q, k, v, lens, want, kv_dtype))
+    return out
+
+
+def library_case(q, k, v, lens, want, dtype) -> dict:
+    """One ``scaled_dot_product_attention(..., enable_gqa=True)`` call
+    with a length mask, all operands in ``dtype``, the cache already in
+    its (B, KV, S, dh) layout: the library yardstick, used nowhere in
+    the port."""
+    s = k.shape[1]
+    q4 = q.to(dtype)[:, :, None, :]
+    kt = k.to(dtype).transpose(1, 2).contiguous()
+    vt = v.to(dtype).transpose(1, 2).contiguous()
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    err = float((call()[:, :, 0].float() - want).abs().max())
+    return {"library_ms": time_ms(call, 20), "library_max_abs_err": err}
+
+
+def serve_kernels_phase(dev):
+    """Each LM kernel against its plain version; the entropy kernel's
+    own path (``ops.estimate_entropies``) with the counts set to 0."""
+    t0 = time.perf_counter()
+    entropy = [entropy_case(5, 10, torch.float32, dev),
+               entropy_case(5, 10, torch.bfloat16, dev),
+               entropy_case(64, 151_936, torch.float32, dev, timed=True),
+               entropy_case(64, 151_936, torch.bfloat16, dev, timed=True),
+               entropy_case(4, 600, torch.float32, dev, scale=500.0)]
+    cfg = get_model("qwen2.5-3b").cfg
+    h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    decode = [decode_case(4, h, kv, dh, 512, dt, dev, timed=True)
+              for dt in (torch.float32, torch.bfloat16)]
+    decode.append(decode_case(3, h, kv, dh, 512, torch.bfloat16, dev,
+                              lengths=[1, 512, 259]))
+    decode.append(decode_case(3, h, kv, dh, 512, torch.float32, dev,
+                              lengths=[1, 512, 259]))
+    d32k = SHAPES["decode_32k"]
+    decode.append(decode_case(d32k.global_batch, h, kv, dh, d32k.seq_len,
+                              torch.bfloat16, dev, timed=True))
+    torch.cuda.empty_cache()
+
+    x = torch.randn((64, 151_936), device=dev) * 0.02
+    kbuild.reset_launches()
+    ent = ops.estimate_entropies(x, T_ENT, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(kbuild.launches)
+    require("entropy path: hetero_entropy was not launched",
+            launches["hetero_entropy"] > 0)
+    require("entropy path: Ĥ not finite or of the wrong shape",
+            ent.shape == (64,) and bool(torch.isfinite(ent).all()))
+    emit({"phase": "serve_kernels", "hetero_entropy": entropy,
+          "decode_attention": decode, "entropy_path_launches": launches,
+          "seconds": time.perf_counter() - t0})
+    return {"hetero_entropy": entropy, "decode_attention": decode}, launches
+
+
+def decode_bound_ms(params, cfg, batch: int, mean_len: float) -> float:
+    """A decode step's byte bound: every weight but the embedding table
+    read once (the embedding gives only B rows), plus the K and V of
+    the mean valid cache length, over the HBM rate."""
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    weights -= params["embed"].numel() * params["embed"].element_size()
+    cache = (2 * cfg.num_layers * batch * mean_len * cfg.num_kv_heads
+             * cfg.resolved_head_dim() * 2)
+    return (weights + cache) / HBM_BYTES_PER_S * 1e3
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def serve_phase(dev):
+    """qwen2.5-3b at full width and depth through the serve entry
+    point: a cold call, then the counted call with the counts set to 0
+    just before it; the flash-decode kernel then on the live bf16 cache
+    of the first and last layer."""
+    cold = serve.main(SERVE_ARGV)
+    cold_times = {k: cold[k] for k in ("init_s", "prefill_ms",
+                                       "decode_ms_per_token")}
+    del cold
+    torch.cuda.empty_cache()
+    kbuild.reset_launches()
+    res = serve.main(SERVE_ARGV)
+    torch.cuda.synchronize()
+    launches = dict(kbuild.launches)
+    require("serve: decode_attention was not launched",
+            launches["decode_attention"] > 0)
+    cfg, params, tokens = res["cfg"], res["params"], res["tokens"]
+    b, gen = tokens.shape
+    prompt = int(SERVE_ARGV[SERVE_ARGV.index("--prompt-len") + 1])
+    require("serve: tokens of the wrong shape or out of range",
+            tokens.shape == (4, 32) and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab_size)
+    require(f"serve: kernel check {res['kernel_max_abs_err']} > 5e-5",
+            res["kernel_max_abs_err"] <= 5e-5)
+    n_params = sum(t.numel() for t in _leaves(params))
+    mean_len = prompt + gen / 2
+    non_embed = n_params - params["embed"].numel()
+    head = params["lm_head"]["w"].numel()
+    # prefill: the f32 weights' operations on every prompt token, the
+    # head's on the last one, or reading the weights once
+    prefill_flops = 2 * (non_embed - head) * b * prompt + 2 * head * b
+    prefill_bound = max(prefill_flops / F32_FLOPS_PER_S,
+                        4 * non_embed / HBM_BYTES_PER_S) * 1e3
+
+    cache, length = res["cache"], res["length"]
+    live = {}
+    gq = torch.Generator(device=dev).manual_seed(7)
+    for layer in (0, cfg.num_layers - 1):
+        k, v = cache["k"][layer], cache["v"][layer]
+        q = torch.randn((b, cfg.num_heads, cfg.resolved_head_dim()),
+                        generator=gq, device=dev)
+        got = ops.gqa_decode_attention(q, k, v, length, device=dev)
+        want = ref.decode_attention_ref(q, k, v, length)
+        live[f"layer{layer}"] = check(f"serve: live cache layer {layer}",
+                                      got, want, 5e-5, 5e-5)
+    profile = decode_profile(res, dev)
+    profile["device_busy_share"] = (profile["device_ms_per_step"]
+                                    / res["decode_ms_per_token"])
+    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "batch": b, "prompt": prompt,
+          "gen": gen, "params": n_params, "init_s": res["init_s"],
+          "prefill_ms": res["prefill_ms"],
+          "prefill_bound_ms": prefill_bound,
+          "decode_ms_per_token": res["decode_ms_per_token"],
+          "decode_bound_ms_per_token": decode_bound_ms(params, cfg, b,
+                                                       mean_len),
+          "cold_call": cold_times,
+          "first_request_tokens": tokens[0].tolist(),
+          "kernel_check_max_abs_err": res["kernel_max_abs_err"],
+          "live_cache_length": length, "live_cache_max_abs_err": live,
+          "decode_profile": profile, "launches": launches,
+          "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+    return res, launches
+
+
+def decode_profile(res, dev, steps: int = 2) -> dict:
+    """Device time of ``steps`` decode steps by ``torch.profiler``: the
+    sum of the kernels' own spans, the share in matrix products (cuBLAS
+    gemm/gemv kernels) and the kernels a step launches.  The steps
+    rewrite the cache's last two slots, after every check has read it;
+    the profiler's host cost leaves the device spans as they are."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    api = get_model(res["cfg"])
+    params, cache = res["params"], res["cache"]
+    token = res["tokens"][:, -1:]
+    pos0 = cache["k"].shape[2] - steps
+    api.decode_step(params, cache, {"token": token, "pos": pos0})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            api.decode_step(params, cache, {"token": token, "pos": pos0 + i})
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    total = sum(by_name.values())
+    gemm = sum(t for n, t in by_name.items()
+               if "gemm" in n.lower() or "gemv" in n.lower())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"steps": steps, "device_ms_per_step": total / steps / 1e3,
+            "matmul_ms_per_step": gemm / steps / 1e3,
+            "kernels_per_step": len(kernels) / steps,
+            "top_kernels_ms_per_step": {n[:80]: t / steps / 1e3
+                                        for n, t in top}}
+
+
+def serve_parity_phase(res, dev):
+    """The same weights cut to the first two layers at full width, on
+    the card and in the port's CPU run, both fed the CPU run's greedy
+    tokens: prefill logits within 1e-3 (all f32, summed in another
+    order), every decode step's within 5e-2 (the bf16 cache: a last-bit
+    f32 difference at a bf16 rounding boundary moves a cached entry by
+    one bf16 step, 2**-8 relative); greedy agreement counted."""
+    cfg = dataclasses.replace(res["cfg"], num_layers=PARITY_LAYERS,
+                              name=res["cfg"].name + "-2layers")
+    full = res["params"]
+    card = dict(full, layers=_map(lambda t: t[:PARITY_LAYERS],
+                                  full["layers"]))
+    cpu = _map(lambda t: t.cpu(), card)
+    api = get_model(cfg)
+    b, gen = res["tokens"].shape
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, cfg.vocab_size, (b, 64))
+    t0 = time.perf_counter()
+    cpu_logits, cpu_tokens = _teacher_forced(api, cpu, prompt, gen, None)
+    cpu_s = time.perf_counter() - t0
+    card_logits, card_tokens = _teacher_forced(api, card, prompt, gen,
+                                               cpu_tokens, dev)
+    errs = [check("serve_parity: prefill logits", card_logits[0],
+                  cpu_logits[0], PARITY_PREFILL_TOL)]
+    for i in range(1, gen):
+        errs.append(check(f"serve_parity: decode step {i} logits",
+                          card_logits[i], cpu_logits[i], PARITY_DECODE_TOL))
+    agree = int((card_tokens == cpu_tokens).sum())
+    # where the greedy picks differ: the CPU run's gap between its top
+    # two logits, against the logit error the tolerance allows
+    gaps = []
+    for i, j in (card_tokens != cpu_tokens).nonzero().tolist():
+        top2 = torch.topk(cpu_logits[j][i], 2).values
+        gaps.append(float(top2[0] - top2[1]))
+    emit({"phase": "serve_parity", "layers": PARITY_LAYERS,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size, "batch": b,
+          "steps": gen, "prefill_max_abs_err": errs[0],
+          "decode_max_abs_err": max(errs[1:]),
+          "decode_max_abs_err_per_step": errs[1:],
+          "greedy_tokens_agree": agree,
+          "greedy_tokens_total": int(cpu_tokens.numel()),
+          "disagreeing_top2_gaps": gaps,
+          "cpu_seconds": cpu_s})
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _teacher_forced(api, params, prompt, gen, forced, dev="cpu"):
+    """Prefill ``prompt``, then ``gen - 1`` decode steps, each fed the
+    greedy token of ``forced`` (the run's own greedy tokens when None).
+    Returns ([logits (B, V) of the prefill and of every step] on the
+    CPU, the greedy tokens (B, gen))."""
+    tokens = torch.tensor(prompt, dtype=torch.int32, device=dev)
+    logits, cache = api.prefill(params, {"tokens": tokens},
+                                cache_extra=gen)
+    out, picks = [logits[:, -1].cpu()], []
+    pos = prompt.shape[1]
+    for i in range(gen):
+        pick = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        picks.append(pick.cpu())
+        if i == gen - 1:
+            break
+        feed = pick if forced is None else forced[:, i].to(dev)
+        logits, cache = api.decode_step(params, cache,
+                                        {"token": feed[:, None],
+                                         "pos": pos})
+        out.append(logits[:, -1].cpu())
+        pos += 1
+    return out, torch.stack(picks, dim=1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -437,21 +814,33 @@ def main() -> int:
     slice_cases = kernel_phase(dev)
     server, hist, launches = slice_phase(dev)
     scratch_launches = from_scratch_phase(server, hist, dev)
+    del server
+    serve_cases, entropy_launches = serve_kernels_phase(dev)
+    res, serve_launches = serve_phase(dev)
+    serve_parity_phase(res, dev)
+    del res
 
     counts = {"fused_stats": launches["fused_stats"],
               "gram_update": launches["gram_update"],
-              "pairwise": scratch_launches["pairwise"]}
+              "pairwise": scratch_launches["pairwise"],
+              "hetero_entropy": entropy_launches["hetero_entropy"],
+              "decode_attention": serve_launches["decode_attention"]}
+    cases = dict(slice_cases, **serve_cases)
+    # the timed case of each kernel: the slice's shape for the selection
+    # kernels, 64 x 151,936 f32 for entropy, one decode_32k layer
+    timed_case = {name: c[0] for name, c in slice_cases.items()}
+    timed_case["hetero_entropy"] = serve_cases["hetero_entropy"][2]
+    timed_case["decode_attention"] = serve_cases["decode_attention"][-1]
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        timed = slice_cases[name][0]
+        timed = timed_case[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
-            "max_abs_err": max(c["max_abs_err"]
-                               for c in slice_cases[name]),
+            "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-            "library_ms": None})
+            "library_ms": timed.get("library_ms")})
     emit({"kernels": kernels})
     if failures:
         for f in failures:

@@ -1,0 +1,8 @@
+"""Configs of the port: ``get_config(name)`` over the registered archs
+(paper-cnn, paper-mlp, qwen2.5-3b)."""
+from repro_torch.configs import paper_cnn, qwen2_5_3b  # noqa: F401  (register)
+from repro_torch.configs.base import (ARCH_KINDS, SHAPES, ModelConfig,
+                                      ShapeConfig, get_config, register)
+
+__all__ = ["ARCH_KINDS", "SHAPES", "ModelConfig", "ShapeConfig",
+           "get_config", "register"]

@@ -3,6 +3,8 @@
   fused_stats  — single-sweep Ĥ + L2 norm + RMS over (N, C)
   gram_update  — K×N Eq. 9 strip for the incremental distance cache
   pairwise     — full (N, N) Eq. 9 matrix
+  hetero_entropy   — Ĥ of each row of (N, C), f32 or bf16
+  decode_attention — one-token GQA attention against a KV cache
   ref          — plain PyTorch versions (the CPU path and the oracle)
   build        — nvcc build of ``csrc/*.cu`` and the ctypes binding
   ops          — the public API, with an explicit device
@@ -10,9 +12,12 @@
 Importing this package needs neither nvcc nor a card: a kernel is
 built and loaded at its first launch.
 """
-from repro_torch.kernels.ops import (fused_row_stats, hics_selection_step,
+from repro_torch.kernels.ops import (estimate_entropies, fused_row_stats,
+                                     gqa_decode_attention,
+                                     hics_selection_step,
                                      hics_selection_step_cached,
                                      pairwise_distances)
 
-__all__ = ["fused_row_stats", "hics_selection_step",
-           "hics_selection_step_cached", "pairwise_distances"]
+__all__ = ["estimate_entropies", "fused_row_stats", "gqa_decode_attention",
+           "hics_selection_step", "hics_selection_step_cached",
+           "pairwise_distances"]

@@ -4,26 +4,17 @@
 // warp per row.  Each lane walks the row's columns lane, lane + 32, ...
 // with an online-softmax carry (m, Z, S) of u = x * scale plus the sum
 // of squares, where Z = sum exp(u - m) and S = sum exp(u - m) (u - m).
-// The 32 carries are merged by shuffle: m = max, and each Z and S is
-// rescaled by exp(m_i - m), S also shifted by (m_i - m) Z_i.  Outputs
+// The 32 carries are merged by shuffle (entropy_carry.cuh).  Outputs
 // Ĥ = ln Z - S / Z, sqrt(sum x²) and sqrt(sum x² / C).  It reads
 // (N, C) once and writes 3N floats, so it is bound by memory bytes;
 // at the slice's C=10 the time is launch latency.
 #include <cuda_runtime.h>
 
+#include "entropy_carry.cuh"
+
 namespace {
 
 constexpr int WARPS_PER_BLOCK = 8;
-constexpr float NEG = -1e30f;  // finite -inf: empty lanes merge without NaN
-
-__device__ inline void merge(float& m, float& z, float& s, float m_o,
-                             float z_o, float s_o) {
-  const float m_new = fmaxf(m, m_o);
-  const float a = expf(m - m_new), b = expf(m_o - m_new);
-  s = (s + (m - m_new) * z) * a + (s_o + (m_o - m_new) * z_o) * b;
-  z = z * a + z_o * b;
-  m = m_new;
-}
 
 __global__ void fused_stats_kernel(const float* __restrict__ x,
                                    const float* __restrict__ scale,
@@ -35,10 +26,10 @@ __global__ void fused_stats_kernel(const float* __restrict__ x,
   if (row >= n) return;  // uniform across the warp
   const float* xr = x + (size_t)row * c;
   const float sc = scale[row];
-  float m = NEG, z = 0.0f, s = 0.0f, ss = 0.0f;
+  float m = carry::NEG, z = 0.0f, s = 0.0f, ss = 0.0f;
   for (int j = lane; j < c; j += 32) {
     const float v = xr[j];
-    merge(m, z, s, v * sc, 1.0f, 0.0f);
+    carry::merge(m, z, s, v * sc, 1.0f, 0.0f);
     ss = fmaf(v, v, ss);
   }
   for (int off = 16; off > 0; off >>= 1) {
@@ -46,7 +37,7 @@ __global__ void fused_stats_kernel(const float* __restrict__ x,
     const float z_o = __shfl_xor_sync(0xffffffffu, z, off);
     const float s_o = __shfl_xor_sync(0xffffffffu, s, off);
     ss += __shfl_xor_sync(0xffffffffu, ss, off);
-    merge(m, z, s, m_o, z_o, s_o);
+    carry::merge(m, z, s, m_o, z_o, s_o);
   }
   if (lane == 0) {
     ent[row] = logf(z) - s / z;

@@ -4,6 +4,8 @@
     hics_selection_step(updates, T, lam)    (N, C) -> (Ĥ (N,), D (N, N))
     hics_selection_step_cached(...)         K-row incremental refresh
     pairwise_distances(updates, T, lam)     (N, C) -> (N, N)   [Eq. 9]
+    estimate_entropies(updates, T)          (N, C) -> (N,)
+    gqa_decode_attention(q, k, v, length)   one-token flash decode
 
 Each takes ``device`` (default ``"cuda"``) and the tensors must lie on
 it.  On ``"cpu"`` the plain PyTorch versions run; on ``"cuda"`` the
@@ -15,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.backend import resolve_device
-from repro_torch.kernels import fused_stats, gram_update, pairwise
+from repro_torch.kernels import (decode_attention, fused_stats, gram_update,
+                                 hetero_entropy, pairwise)
 
 
 def _on(device, *tensors: torch.Tensor) -> None:
@@ -60,3 +63,19 @@ def pairwise_distances(updates: torch.Tensor, temperature: float,
     """Full Eq. 9 matrix: fused stats, then the pairwise kernel."""
     _on(device, updates)
     return pairwise.hics_selection_step(updates, temperature, lam=lam)[1]
+
+
+def estimate_entropies(updates: torch.Tensor, temperature: float, *,
+                       device="cuda") -> torch.Tensor:
+    """Ĥ over N clients' bias updates: (N, C) f32 or bf16 -> (N,) f32."""
+    _on(device, updates)
+    return hetero_entropy.entropy(updates, temperature)
+
+
+def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         length, scale: float | None = None, *,
+                         device="cuda") -> torch.Tensor:
+    """One-token GQA attention against a (B, S, KV, dh) cache: q
+    (B, H, dh), length () or (B,) -> (B, H, dh) f32."""
+    _on(device, q, k, v)
+    return decode_attention.decode_attention(q, k, v, length, scale=scale)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the selection kernels.
+"""Plain PyTorch versions of the kernels.
 
 These are the semantics contract of the port, as ``kernels/ref.py`` is
 the reference's: each function repeats the reference oracle's
@@ -114,3 +114,27 @@ def cached_selection_step_ref(updates: torch.Tensor, dist: torch.Tensor,
     stats[ids] = torch.stack([n_rows, h_rows], dim=-1)
     strip = distance_strip_ref(x, stats, ids, lam, eps=eps)
     return stats[:, 1], scatter_strip(dist, strip, ids), stats
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         length, scale: float | None = None) -> torch.Tensor:
+    """GQA one-token decode attention.
+
+    q: (B, H, dh); k/v: (B, S, KV, dh); length: valid cache length, ()
+    or (B,) (positions >= length are masked).  H must be a multiple of
+    KV.  Returns (B, H, dh) float32.  A row of length 0 is NaN (softmax
+    over all -inf); the kernel returns 0 there.
+    """
+    b, h, dh = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = (dh ** -0.5) if scale is None else scale
+    qf = q.float().reshape(b, kv, g, dh)
+    logits = torch.einsum("bngd,bsnd->bngs", qf, k.float()) * scale
+    pos = torch.arange(s, device=q.device)
+    lens = torch.as_tensor(length, device=q.device).reshape(-1, 1)
+    mask = pos[None, :] < lens
+    logits = torch.where(mask[:, None, None, :], logits, -torch.inf)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bngs,bsnd->bngd", p, v.float())
+    return out.reshape(b, h, dh)

@@ -1,0 +1,197 @@
+"""Decoder-only transformer LM, the dense case: init, forward, prefill
+and one-token decode against a bf16 KV cache.
+
+A port of the reference's ``models/transformer.py`` for configs of
+``kind == "dense"``; the MoE and VLM branches are not ported and raise.
+Layers are stacked on a leading axis as in the reference (its vmapped
+init), and run in a Python loop over that axis in place of ``lax.scan``.
+Compute is f32; the cache is bf16, as the reference's ``prefill`` and
+serve path keep it.  Unlike the reference, ``decode_step`` writes the
+new token's K/V into the cache tensors in place (no copy of the cache
+per token) and returns the same dict.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers as L
+
+_NOT_PORTED = ("moe", "vlm", "ssm", "rwkv", "hybrid", "encdec")
+
+
+def require_dense(cfg) -> None:
+    """Raise for a config the port's LM does not cover yet."""
+    for name in _NOT_PORTED:
+        if getattr(cfg, name) is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: configs with {name!r} are not ported; the "
+                "port's LM covers dense decoders")
+
+
+# ---------------------------------------------------------------------------
+# Window / cache geometry
+# ---------------------------------------------------------------------------
+
+
+def effective_window(cfg, seq_len: int, long_context: bool) -> int:
+    if long_context:
+        if cfg.long_context_mode == "native":
+            return cfg.sliding_window
+        if cfg.long_context_mode == "swa":
+            return cfg.long_context_window
+    return cfg.sliding_window
+
+
+def cache_geometry(cfg, seq_len: int, long_context: bool):
+    """(cache_len, ring): sliding-window decode uses a ring buffer of
+    the window size."""
+    w = effective_window(cfg, seq_len, long_context)
+    if w and w < seq_len:
+        return w, True
+    return seq_len, False
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_params(gen: torch.Generator, cfg) -> dict:
+    """Random params on ``gen``'s device, layers stacked on axis 0."""
+    require_dense(cfg)
+    dev, d = gen.device, cfg.d_model
+    lead = (cfg.num_layers,)
+    layers = {
+        "ln1": L.init_norm(d, cfg.norm, lead, dev),
+        "attn": L.init_attention(gen, cfg, lead),
+        "ln2": L.init_norm(d, cfg.norm, lead, dev),
+        "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.mlp, lead),
+    }
+    params = {
+        "embed": L.embed_init(gen, (cfg.vocab_size, d)),
+        "layers": layers,
+        "final_norm": L.init_norm(d, cfg.norm, device=dev),
+    }
+    head = {}
+    if not cfg.tie_embeddings:
+        head["w"] = L.dense_init(gen, (d, cfg.vocab_size))
+    if cfg.lm_head_bias:
+        head["b"] = torch.zeros(cfg.vocab_size, device=dev)
+    if head:
+        params["lm_head"] = head
+    return params
+
+
+def params_from_jax(tree, device="cuda"):
+    """Carry a reference param tree (nested dicts of numpy arrays) over
+    as it is: the port keeps the reference's layouts."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
+
+
+def layer_params(layers: dict, i: int) -> dict:
+    """The params of layer ``i`` of a stacked tree (views)."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+def head_weights(params, cfg):
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    b = params.get("lm_head", {}).get("b") if cfg.lm_head_bias else None
+    return w, b
+
+
+def _logits(params, x, cfg):
+    w, b = head_weights(params, cfg)
+    logits = (x @ w.to(x.dtype)).float()
+    return logits if b is None else logits + b
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _embed(params, tokens, cfg):
+    x = params["embed"][tokens.long()]
+    if cfg.scale_embeddings:
+        x = x * cfg.d_model ** 0.5
+    return x
+
+
+def _layer_apply(lp, x, cfg):
+    h = L.apply_norm(x, lp["ln1"], cfg.norm)
+    a, kv = L.attention_block(lp["attn"], h, cfg,
+                              window=cfg.sliding_window)
+    x = x + a
+    h = L.apply_norm(x, lp["ln2"], cfg.norm)
+    return x + L.mlp_block(lp["mlp"], h, cfg.mlp), kv
+
+
+def forward(params, tokens, cfg):
+    """Full-span f32 forward over tokens (B, T).  Returns (hidden
+    (B, T, d) after the final norm, [(k, v) of each layer])."""
+    require_dense(cfg)
+    x = _embed(params, tokens, cfg)
+    kvs = []
+    for i in range(cfg.num_layers):
+        x, kv = _layer_apply(layer_params(params["layers"], i), x, cfg)
+        kvs.append(kv)
+    return L.apply_norm(x, params["final_norm"], cfg.norm), kvs
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
+               device="cuda") -> dict:
+    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim())
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _pad_cache_seq(k, extra: int):
+    """Append ``extra`` empty slots on the sequence axis (axis 2 of
+    (L, B, S, KV, dh)) for the decode steps to write."""
+    if not extra:
+        return k
+    pad = torch.zeros((*k.shape[:2], extra, *k.shape[3:]), dtype=k.dtype,
+                      device=k.device)
+    return torch.cat([k, pad], dim=2)
+
+
+def prefill(params, batch, cfg, *, cache_extra: int = 0):
+    """Forward over a prompt {'tokens': (B, T)}; returns (last-token
+    logits (B, 1, V) f32, bf16 cache with ``cache_extra`` free slots)."""
+    x, kvs = forward(params, batch["tokens"], cfg)
+    logits = _logits(params, x[:, -1:, :], cfg)
+    cache = {name: _pad_cache_seq(
+        torch.stack([kv[j] for kv in kvs]).to(torch.bfloat16), cache_extra)
+        for j, name in enumerate(("k", "v"))}
+    return logits, cache
+
+
+def decode_step(params, cache, batch, cfg, *, window: int = 0,
+                ring: bool = False):
+    """One-token decode.  batch: {'token': (B, 1), 'pos': int}.  Writes
+    the token's K/V into ``cache`` in place; returns (logits (B, 1, V)
+    f32, cache)."""
+    require_dense(cfg)
+    token, pos = batch["token"], int(batch["pos"])
+    x = _embed(params, token, cfg)
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["layers"], i)
+        h = L.apply_norm(x, lp["ln1"], cfg.norm)
+        a, _ = L.attention_decode_block(
+            lp["attn"], h, cfg, cache["k"][i], cache["v"][i], pos,
+            window=window, ring=ring)
+        y = x + a
+        h = L.apply_norm(y, lp["ln2"], cfg.norm)
+        x = y + L.mlp_block(lp["mlp"], h, cfg.mlp)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm)
+    return _logits(params, x, cfg), cache

@@ -3,8 +3,9 @@
 * The port and ``chip_smoke.py`` import neither JAX nor anything of
   the JAX package ``repro``.
 * The kernel modules import without ``triton`` and without ``nvcc``.
-* Entry points default to the card: called with no device on a
-  machine without CUDA they raise instead of running on the CPU.
+* Entry points default to the card (the ops, the experiment builder,
+  model init and the serve entry point): called with no device on a machine
+  without CUDA they raise instead of running on the CPU.
 """
 import ast
 import os
@@ -50,8 +51,11 @@ def test_kernel_modules_import_without_triton_or_nvcc(tmp_path):
         "import repro_torch.kernels.fused_stats\n"
         "import repro_torch.kernels.gram_update\n"
         "import repro_torch.kernels.pairwise\n"
+        "import repro_torch.kernels.hetero_entropy\n"
+        "import repro_torch.kernels.decode_attention\n"
         "from repro_torch.kernels import build\n"
         "import repro_torch.fed, repro_torch.core\n"
+        "import repro_torch.models, repro_torch.launch.serve\n"
         "assert build._loaded == {} and not any(build.launches.values())\n"
         "print('ok')\n")
     env = dict(os.environ, PATH=str(tmp_path),
@@ -85,7 +89,23 @@ def test_ops_without_device_raise_without_cuda(no_cuda):
         lambda: ops.hics_selection_step_cached(
             x, torch.zeros(4, 4), torch.zeros(4, 2),
             torch.arange(2), 0.63),
+        lambda: ops.estimate_entropies(x, 0.0025),
+        lambda: ops.gqa_decode_attention(
+            torch.zeros(1, 4, 8), torch.zeros(1, 3, 2, 8),
+            torch.zeros(1, 3, 2, 8), 3),
     ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_serve_entry_points_raise_without_cuda(no_cuda):
+    """Model init, the cache and the serve entry point default to the card."""
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+    api = get_model("qwen2.5-3b")
+    calls = [lambda: api.init(0), lambda: api.init_cache(1, 8),
+             lambda: serve.main(["--full"]), lambda: serve.main([])]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -94,9 +114,12 @@ def test_ops_without_device_raise_without_cuda(no_cuda):
 def test_kernel_wrappers_refuse_cpu_tensors_at_launch():
     """The raw launch functions never run on the CPU: a CPU tensor is
     refused before any library is built or loaded."""
+    from repro_torch.kernels import build
     from repro_torch.kernels.fused_stats import fused_stats_rows
     from repro_torch.kernels.gram_update import gram_strip
     from repro_torch.kernels.pairwise import pairwise
+    from repro_torch.kernels.hetero_entropy import entropy_rows
+    from repro_torch.kernels.decode_attention import decode_attention_kernel
     x = torch.zeros(4, 10)
     with pytest.raises(ValueError, match="CUDA"):
         fused_stats_rows(x, torch.ones(4))
@@ -105,3 +128,16 @@ def test_kernel_wrappers_refuse_cpu_tensors_at_launch():
                    torch.zeros(2, dtype=torch.int32), 10.0)
     with pytest.raises(ValueError, match="CUDA"):
         pairwise(x, torch.ones(4, 2), 10.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        entropy_rows(x, 0.0025)
+    with pytest.raises(ValueError, match="CUDA"):
+        entropy_rows(x.bfloat16(), 0.0025)
+    kv = torch.zeros(1, 3, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_kernel(torch.zeros(1, 4, 8), kv, kv,
+                                torch.ones(1, dtype=torch.int32), 0.35)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_kernel(torch.zeros(1, 4, 8), kv.bfloat16(),
+                                kv.bfloat16(),
+                                torch.ones(1, dtype=torch.int32), 0.35)
+    assert not build._loaded and not any(build.launches.values())

@@ -1,6 +1,6 @@
-"""The port's selection kernels on the CPU (their plain PyTorch
-versions) against the reference's Pallas kernels in interpret mode and
-against its ``ref.py`` oracles.
+"""The port's kernels on the CPU (their plain PyTorch versions)
+against the reference's Pallas kernels in interpret mode and against
+its ``ref.py`` oracles.
 
 Each test loops over its cases (``torch_parity.each``).
 
@@ -19,9 +19,11 @@ import jax.numpy as jnp
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels.fused_stats import fused_stats_pallas
 from repro.kernels.gram_update import (cached_selection_step_pallas,
                                        gram_row_update_pallas)
+from repro.kernels.hetero_entropy import entropy_pallas
 from repro.kernels.pairwise import hics_selection_step_pallas
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_stats import fused_stats
@@ -189,5 +191,95 @@ def test_ops_cpu_dispatch_runs_plain_versions():
         assert torch.equal(a, b)
     dist = ops.pairwise_distances(x, 0.63, LAM, device="cpu")
     assert torch.equal(dist, ref.selection_step_ref(x, 0.63, LAM)[1])
+    assert torch.equal(ops.estimate_entropies(x, 0.63, device="cpu"),
+                       ref.entropy_ref(x, 0.63))
+    q, kv = torch.tensor(_x(2, 32)).reshape(2, 2, 16), \
+        torch.tensor(_x(2, 64)).reshape(2, 2, 2, 16)
+    assert torch.equal(ops.gqa_decode_attention(q, kv, kv, 2, device="cpu"),
+                       ref.decode_attention_ref(q, kv, kv, 2))
     with pytest.raises(ValueError):
         ops.fused_row_stats(x, 0.63, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# hetero_entropy and decode_attention: plain versions vs the Pallas
+# kernels in interpret mode, at the shapes and tolerances of the
+# reference's own kernel tests (tests/test_kernels.py:23-56, 89-122)
+# ---------------------------------------------------------------------------
+
+
+def _to_jax(x: np.ndarray, dtype):
+    """The same values on both sides: (jax array, torch tensor)."""
+    j = jnp.asarray(x, dtype)
+    t = torch.tensor(np.asarray(j.astype(jnp.float32)))
+    return j, (t.bfloat16() if dtype == jnp.bfloat16 else t)
+
+
+def test_entropy_plain_vs_pallas():
+    """T = 0.0025: 5e-5 for f32 and 5e-3 for bf16, absolute and
+    relative."""
+    each(_entropy_case, [(1, 4), (5, 10), (50, 1000), (17, 769), (8, 4096),
+                         (3, 151_936 // 64)], [jnp.float32, jnp.bfloat16])
+
+
+def _entropy_case(shape, dtype):
+    jx, tx = _to_jax(np.random.default_rng(sum(shape)).normal(size=shape)
+                     * 0.02, dtype)
+    got = ops.estimate_entropies(tx, 0.0025, device="cpu")
+    want = entropy_pallas(jx, 0.0025, interpret=True)
+    tol = 5e-5 if dtype == jnp.float32 else 5e-3
+    assert got.dtype == torch.float32 and got.shape == (shape[0],)
+    _close(got, want, tol, rtol=tol)
+    _close(got, jref.entropy_ref(jx, 0.0025), tol, rtol=tol)
+
+
+def test_entropy_plain_extreme_magnitudes():
+    """Inputs of magnitude 500 at T = 0.0025 stay finite and within
+    0.05 (f32 rounding of (u - m) at |u| ~ 2e5)."""
+    x = np.random.default_rng(0).normal(size=(4, 600)) * 500.0
+    jx, tx = _to_jax(x, jnp.float32)
+    got = ops.estimate_entropies(tx, 0.0025, device="cpu")
+    assert torch.isfinite(got).all()
+    _close(got, entropy_pallas(jx, 0.0025, interpret=True), 0.05)
+
+
+def test_decode_attention_plain_vs_pallas():
+    """5e-5 for f32 and 3e-2 for bf16 K/V (and q), absolute and
+    relative; the Pallas kernel with 128-position blocks."""
+    each(_decode_case, [(2, 8, 2, 64, 256), (1, 16, 8, 128, 512),
+                        (2, 4, 4, 256, 128), (3, 2, 1, 64, 96)],
+         [jnp.float32, jnp.bfloat16])
+
+
+def _decode_case(shape, dtype):
+    b, h, kv, dh, s = shape
+    rng = np.random.default_rng(s + dh)
+    jq, tq = _to_jax(rng.normal(size=(b, h, dh)), dtype)
+    jk, tk = _to_jax(rng.normal(size=(b, s, kv, dh)), dtype)
+    jv, tv = _to_jax(rng.normal(size=(b, s, kv, dh)), dtype)
+    got = ops.gqa_decode_attention(tq, tk, tv, s, device="cpu")
+    want = decode_attention_pallas(jq, jk, jv, s, block_s=128,
+                                   interpret=True)
+    tol = 5e-5 if dtype == jnp.float32 else 3e-2
+    assert got.dtype == torch.float32 and got.shape == (b, h, dh)
+    _close(got, want, tol, rtol=tol)
+    _close(got, jref.decode_attention_ref(jq, jk, jv, s), tol, rtol=tol)
+
+
+def test_decode_attention_plain_ragged_lengths():
+    """Per-request lengths [1, 320, 130] within 1e-4; a length-1 row
+    equals v[:, 0] of its KV head."""
+    b, h, kv, dh, s = 3, 8, 4, 64, 320
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.normal(size=sh).astype(np.float32)
+               for sh in ((b, h, dh), (b, s, kv, dh), (b, s, kv, dh)))
+    lens = np.array([1, 320, 130])
+    got = ops.gqa_decode_attention(torch.tensor(q), torch.tensor(k),
+                                   torch.tensor(v), torch.tensor(lens),
+                                   device="cpu")
+    want = decode_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), lens, block_s=64,
+                                   interpret=True)
+    _close(got, want, 1e-4)
+    first = np.broadcast_to(v[0, 0][:, None, :], (kv, h // kv, dh))
+    _close(got[0].reshape(kv, h // kv, dh), first, 1e-4)
