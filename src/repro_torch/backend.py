@@ -8,7 +8,12 @@ runs the plain PyTorch versions (the tests pass it).
 The JAX reference computes in full f32.  PyTorch's f32 matmul is full
 f32 by default, but cuDNN convolutions default to TF32, which keeps
 about three decimal digits, and paper-cnn is a CNN.
-:func:`set_precision` turns TF32 off for both.
+:func:`set_precision` turns TF32 off for both.  It also restricts cuDNN
+to deterministic algorithms: with the default ones, two card runs of
+the same spec trained the same cohort to different losses (atomic sums
+in another order each run), and paper-cnn's local training grows such
+last-bit differences to ~1e-3 in two rounds, so a run could not be
+repeated.
 """
 from __future__ import annotations
 
@@ -30,7 +35,9 @@ def resolve_device(device) -> torch.device:
 
 
 def set_precision() -> None:
-    """Full f32 everywhere: TF32 off for matmul and for cuDNN."""
+    """Full f32 everywhere, TF32 off for matmul and for cuDNN, and
+    deterministic cuDNN algorithms."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     torch.set_float32_matmul_precision("highest")

@@ -1,4 +1,5 @@
-"""HiCS-FL core of the port: estimator, clustering, sampling, selector."""
+"""HiCS-FL core of the port: estimator, clustering, sampling,
+selectors."""
 from repro_torch.core.clustering import (agglomerate_device,
                                          cluster_means_device)
 from repro_torch.core.hetero import (estimate_entropy,
@@ -6,13 +7,17 @@ from repro_torch.core.hetero import (estimate_entropy,
                                      head_num_classes, label_entropy,
                                      softmax_entropy)
 from repro_torch.core.sampling import (anneal_device, coverage_sweep_device,
-                                       hierarchical_sample_device)
-from repro_torch.core.selectors import (SelectNoise, SelectorState,
-                                        hics_functional)
+                                       gumbel_topk,
+                                       hierarchical_sample_device,
+                                       weighted_sample_device)
+from repro_torch.core.selectors import (FUNCTIONAL, Observations,
+                                        SelectNoise, SelectorState,
+                                        hics_functional, make_functional)
 
-__all__ = ["agglomerate_device", "anneal_device", "cluster_means_device",
-           "coverage_sweep_device", "estimate_entropy",
+__all__ = ["FUNCTIONAL", "Observations", "SelectNoise", "SelectorState",
+           "agglomerate_device", "anneal_device", "cluster_means_device",
+           "coverage_sweep_device", "estimate_entropy", "gumbel_topk",
            "head_bias_updates_stacked", "head_num_classes",
            "hics_functional", "hierarchical_sample_device",
-           "label_entropy", "SelectNoise", "SelectorState",
-           "softmax_entropy"]
+           "label_entropy", "make_functional", "softmax_entropy",
+           "weighted_sample_device"]

@@ -1,8 +1,9 @@
 """Two-stage hierarchical clustered sampling (paper §3.4, Eq. 10), on
 device, with the Gumbel noise as an input.
 
-The port of the reference's ``anneal_device``, ``coverage_sweep_device``
-and ``hierarchical_sample_device``.  The caller draws the noise; given
+The port of the reference's ``anneal_device``, ``gumbel_topk``,
+``weighted_sample_device``, ``coverage_sweep_device`` and
+``hierarchical_sample_device``.  The caller draws the noise; given
 the same Gumbel tensors the port picks the same ids as the reference:
 
 * top-k is a stable descending sort, so ties go to the lower index as
@@ -28,6 +29,23 @@ def anneal_device(gamma0: float, t: int, total_rounds: float,
 
 def _topk_stable(scores: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(scores, descending=True, stable=True).indices[:k]
+
+
+def gumbel_topk(noise: torch.Tensor, logits: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """Top-K of ``logits + noise`` (standard Gumbel, the shape of
+    ``logits``): K draws without replacement, P(i first) ∝ exp(logits_i)."""
+    return _topk_stable(logits + noise, k)
+
+
+def weighted_sample_device(noise: torch.Tensor, weights: torch.Tensor,
+                           k: int) -> torch.Tensor:
+    """min(K, N) distinct ids ∝ ``weights`` (Gumbel top-K over log w).
+    ``noise`` is (N,) standard Gumbel f32: the reference draws it on the
+    select key with the coverage sweep's shape, so it is the round's
+    ``SelectNoise.cover``."""
+    logw = torch.log(torch.clamp(weights, min=_NEG_LOG_FLOOR)).float()
+    return gumbel_topk(noise, logw, min(k, weights.shape[-1]))
 
 
 def coverage_sweep_device(noise: torch.Tensor, seen: torch.Tensor,

@@ -3,52 +3,86 @@ transitions.
 
     state = fn.init()
     ids, state = fn.select(state, t, noise)
-    state = fn.update(state, t, ids, bias_updates)
+    state = fn.update(state, t, ids, obs)
 
-The port of the reference's ``core/selectors/functional.py`` for the
-fields HiCS-FL reads.  Every field is a tensor on the server's device.
-Randomness is an input: ``select`` takes the round's
-:class:`SelectNoise`, which the server draws in one place per round.
-Transitions return new tensors and never write into the state they
-were given.
+The port of the reference's ``core/selectors/functional.py``.  Every
+field is a tensor on the server's device.  Randomness is an input:
+``select`` takes the round's :class:`SelectNoise`, which the server
+draws in one place per round.  ``update`` takes the
+:class:`Observations` the server computed for the selector's
+``requires``.  Transitions return new tensors and never write into the
+state they were given.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, FrozenSet, NamedTuple, Optional
 
 import torch
 
 
 class SelectNoise(NamedTuple):
-    """One round's standard Gumbel draws (f32): the coverage sweep's
-    ``cover`` (N,), and per two-stage draw i the cluster stage's
-    ``cluster[i]`` (M,) and the client stage's ``client[i]`` (N,)."""
-    cover: torch.Tensor       # (N,)
-    cluster: torch.Tensor     # (K, M)
-    client: torch.Tensor      # (K, N)
+    """One round's standard Gumbel draws (f32), each the reference's
+    draw on the round's select key:
+
+    cover        (N,)   the coverage sweep's, and the weighted
+                        sampler's (same key and shape)
+    cluster      (K, M) per two-stage draw i, the cluster stage's
+    client       (K, N) per two-stage draw i, the client stage's
+    cluster_pick (K, N) Clustered Sampling's one pick per cluster
+    """
+    cover: torch.Tensor
+    cluster: torch.Tensor
+    client: torch.Tensor
+    cluster_pick: torch.Tensor
+
+
+class Observations(NamedTuple):
+    """What the server computed for the selector this round.
+
+    bias_updates : (K, C) Δb of the round's participants, row-aligned
+                   with ``ids`` (HiCS-FL).
+    full_updates : (K, P) or (N, P) flattened model updates (CS, DivFL).
+    losses       : (N,) global-model loss of every client (pow-d,
+                   FedCor).
+    """
+    bias_updates: Optional[torch.Tensor] = None
+    full_updates: Optional[torch.Tensor] = None
+    losses: Optional[torch.Tensor] = None
 
 
 class SelectorState(NamedTuple):
+    """Every selector's round-to-round data; a selector's unused
+    buffers have a zero-width axis."""
     weights: torch.Tensor       # (N,) normalized p_k
     seen: torch.Tensor          # (N,) bool — coverage pool complement
     unseen_count: torch.Tensor  # () int32
     delta_b: torch.Tensor       # (N, C) Δb buffer
-    dist_cache: torch.Tensor    # (N, N) cached Eq. 9 distance, or (N, 0)
-    row_stats: torch.Tensor     # (N, 2) cached [L2 norm, Ĥ], or (N, 0)
+    feats: torch.Tensor         # (N, F) full-update features, or (N, 0)
+    losses: torch.Tensor        # (N,) latest loss poll
+    loss_hist: torch.Tensor     # (H, N) loss-history ring, newest last
+    hist_count: torch.Tensor    # () int32 — observations received
+    dist_cache: torch.Tensor    # (N, N) cached distance, or (N, 0)
+    row_stats: torch.Tensor     # (N, 2) cached [L2 norm, Ĥ or 0], or (N, 0)
     stale_ids: torch.Tensor     # (L,) int32 ring of staled rows, or (0,)
     stale_fill: torch.Tensor    # () int32 — ids appended since refresh
 
 
 class FunctionalSelector(NamedTuple):
     name: str
+    #: observations ``update`` reads: a subset of {"bias_sel",
+    #: "loss_all", "full_sel", "full_all"}
+    requires: FrozenSet[str]
     init: Callable[[], SelectorState]
     select: Callable[..., tuple]          # (state, t, noise) -> (ids, state)
-    update: Callable[..., SelectorState]  # (state, t, ids, Δb) -> state
+    update: Callable[..., SelectorState]  # (state, t, ids, obs) -> state
     #: (state) -> (N,) Ĥ
     entropies: Optional[Callable[[SelectorState], torch.Tensor]] = None
+    #: observed full-update width P -> stored feature width F
+    feat_width: Optional[Callable[[int], int]] = None
 
 
 def init_state(num_clients: int, weights=None, num_classes: int = 0,
+               feat_dim: int = 0, hist_len: int = 0,
                dist_cache: bool = False, stale_len: int = 0,
                device="cuda") -> SelectorState:
     """A fresh state.  ``weights`` are normalized in f64 and again in
@@ -66,6 +100,10 @@ def init_state(num_clients: int, weights=None, num_classes: int = 0,
         seen=torch.zeros(n, dtype=torch.bool, device=device),
         unseen_count=torch.tensor(n, dtype=torch.int32, device=device),
         delta_b=torch.zeros((n, int(num_classes)), device=device),
+        feats=torch.zeros((n, int(feat_dim)), device=device),
+        losses=torch.zeros(n, device=device),
+        loss_hist=torch.zeros((int(hist_len), n), device=device),
+        hist_count=z32,
         dist_cache=torch.zeros((n, n if dist_cache else 0), device=device),
         row_stats=torch.zeros((n, 2 if dist_cache else 0), device=device),
         stale_ids=torch.zeros(int(stale_len), dtype=torch.int32,
@@ -103,3 +141,14 @@ def stale_append(state: SelectorState, ids: torch.Tensor) -> SelectorState:
 def stale_clear(state: SelectorState) -> SelectorState:
     """Reset the staleness counter after a refresh covered the ring."""
     return state._replace(stale_fill=torch.zeros_like(state.stale_fill))
+
+
+def refresh_cache(state: SelectorState, step) -> SelectorState:
+    """Run ``step(state) -> (dist, stats)`` over the staled rows when
+    any update staled a row since the last refresh (one scalar read),
+    then reset the ring's counter.  Shared by the incremental
+    selectors (hics on Δb, cs and divfl on full-update features)."""
+    if int(state.stale_fill) > 0:
+        dist, stats = step(state)
+        state = state._replace(dist_cache=dist, row_stats=stats)
+    return stale_clear(state)

@@ -13,23 +13,25 @@ M = K groups on the Eq. 9 distance and the two-stage Eq. 10 sampler.
 
 Both run on the state's device: the CUDA kernels on the card, the
 plain versions on the CPU.  The two branch tests read one scalar each
-from the device per round.
+from the device per round.  ``update`` reads ``obs.bias_updates``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.backend import resolve_device
 from repro_torch.core.clustering import (agglomerate_device,
                                          cluster_means_device)
 from repro_torch.core.hetero import estimate_entropy
 from repro_torch.core.sampling import (anneal_device, coverage_sweep_device,
                                        hierarchical_sample_device)
 from repro_torch.core.selectors.functional import (FunctionalSelector,
+                                                   Observations,
                                                    SelectNoise,
                                                    SelectorState,
                                                    init_state, mark_seen,
-                                                   stale_append,
-                                                   stale_clear)
+                                                   refresh_cache,
+                                                   stale_append)
 from repro_torch.kernels import ops
 
 
@@ -38,13 +40,13 @@ def hics_functional(num_clients: int, num_select: int, total_rounds: int,
                     lam: float = 10.0, gamma0: float = 4.0,
                     normalize: bool = False, num_classes: int = 1,
                     incremental: bool = True,
-                    device="cuda") -> FunctionalSelector:
+                    device="cuda", **_kw) -> FunctionalSelector:
     n = int(num_clients)
     k = min(int(num_select), n)
     temperature, lam, gamma0 = float(temperature), float(lam), float(gamma0)
     tr = float(total_rounds)
     num_classes = max(1, int(num_classes))
-    device = torch.device(device)
+    device = resolve_device(device)
 
     def init() -> SelectorState:
         return init_state(n, weights, num_classes=num_classes,
@@ -54,14 +56,11 @@ def hics_functional(num_clients: int, num_select: int, total_rounds: int,
 
     def select(state: SelectorState, t: int, noise: SelectNoise):
         if incremental:
-            if int(state.stale_fill) > 0:
-                _, dist_c, stats_c = ops.hics_selection_step_cached(
-                    state.delta_b, state.dist_cache, state.row_stats,
-                    state.stale_ids, temperature, lam=lam,
-                    normalize=normalize, device=device)
-                state = state._replace(dist_cache=dist_c,
-                                       row_stats=stats_c)
-            state = stale_clear(state)
+            state = refresh_cache(state, lambda st: (
+                ops.hics_selection_step_cached(
+                    st.delta_b, st.dist_cache, st.row_stats, st.stale_ids,
+                    temperature, lam=lam, normalize=normalize,
+                    device=device)[1:]))
         if int(state.unseen_count) > 0:
             ids = coverage_sweep_device(noise.cover, state.seen, k)
             return ids.to(torch.int32), mark_seen(state, ids)
@@ -82,10 +81,13 @@ def hics_functional(num_clients: int, num_select: int, total_rounds: int,
         return ids, state
 
     def update(state: SelectorState, t: int, ids: torch.Tensor,
-               bias_updates: torch.Tensor) -> SelectorState:
-        db = state.delta_b.index_copy(0, ids.long(),
-                                      bias_updates.to(state.delta_b.dtype))
-        state = mark_seen(state._replace(delta_b=db), ids)
+               obs: Observations) -> SelectorState:
+        if obs.bias_updates is None:
+            return state
+        db = state.delta_b.index_copy(
+            0, ids.long(), obs.bias_updates.to(state.delta_b.dtype))
+        state = mark_seen(state._replace(
+            delta_b=db, hist_count=state.hist_count + 1), ids)
         if incremental:
             state = stale_append(state, ids)    # next select refreshes
         return state
@@ -94,5 +96,5 @@ def hics_functional(num_clients: int, num_select: int, total_rounds: int,
         return estimate_entropy(state.delta_b, temperature,
                                 normalize=normalize)
 
-    return FunctionalSelector("hics", init, select, update,
-                              entropies=entropies)
+    return FunctionalSelector("hics", frozenset({"bias_sel"}), init,
+                              select, update, entropies=entropies)

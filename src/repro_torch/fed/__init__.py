@@ -1,13 +1,19 @@
 """Federated-learning runtime of the port: partitioning, the fedavg
 client, the host-loop server and the experiment builder."""
-from repro_torch.fed.client import LocalSpec, make_eval_fn, make_local_update
+from repro_torch.fed.client import (LocalSpec, make_eval_fn,
+                                    make_local_update, make_loss_poll)
 from repro_torch.fed.partition import (dirichlet_partition,
                                        multi_alpha_partition)
 from repro_torch.fed.server import (FedConfig, FederatedServer, RoundDraws,
-                                    aggregate_params, rounds_to_accuracy)
-from repro_torch.fed.simulation import ExperimentSpec, build
+                                    aggregate_params, flatten_params,
+                                    full_sel_updates, make_grad_all,
+                                    rounds_to_accuracy)
+from repro_torch.fed.simulation import (PAPER_SETTINGS, ExperimentSpec, build,
+                                        run_experiment)
 
 __all__ = ["ExperimentSpec", "FedConfig", "FederatedServer", "LocalSpec",
-           "RoundDraws", "aggregate_params", "build",
-           "dirichlet_partition", "make_eval_fn", "make_local_update",
-           "multi_alpha_partition", "rounds_to_accuracy"]
+           "PAPER_SETTINGS", "RoundDraws", "aggregate_params", "build",
+           "dirichlet_partition", "flatten_params", "full_sel_updates",
+           "make_eval_fn", "make_grad_all", "make_local_update",
+           "make_loss_poll", "multi_alpha_partition", "rounds_to_accuracy",
+           "run_experiment"]

@@ -1,6 +1,7 @@
-"""Client-side LocalUpdate (Algorithm 1 line 3): fedavg with sgd.
+"""Client-side LocalUpdate (Algorithm 1 line 3): fedavg with sgd, and
+the server's all-clients loss poll.
 
-The port of the reference's ``fed/client.py`` for the slice.  Every
+The port of the reference's ``fed/client.py`` for fedavg with sgd.  Every
 client's data is padded to a common (S_max, d) with a sample mask, and
 the whole cohort of K clients trains at once: ``torch.func.vmap`` of
 ``torch.func.grad_and_value`` over the K stacked param dicts.  The
@@ -29,14 +30,15 @@ class LocalSpec:
 
 def masked_ce(logits: torch.Tensor, labels: torch.Tensor,
               mask: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy over the rows with mask > 0."""
+    """Mean cross-entropy over the rows with mask > 0, along the last
+    axis of ``mask`` (the leading axes, if any, are kept)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, labels.long()[..., None])[..., 0]
     # where(), not multiply-by-zero: a padded row may carry any value,
     # and 0·inf would leak NaN into the mean
     per = torch.where(mask > 0, logz - tgt, 0.0) * mask
-    return per.sum() / torch.clamp(mask.sum(), min=1.0)
+    return per.sum(dim=-1) / torch.clamp(mask.sum(dim=-1), min=1.0)
 
 
 def make_local_update(apply_fn: Callable, spec: LocalSpec) -> Callable:
@@ -97,3 +99,17 @@ def make_eval_fn(apply_fn: Callable) -> Callable:
         return loss, hit.sum() / torch.clamp(mask.sum(), min=1.0)
 
     return evaluate
+
+
+def make_loss_poll(apply_fn: Callable) -> Callable:
+    """(params, x (N, S, d), y (N, S), mask (N, S)) -> (N,) global-model
+    loss on every client's data: the ``loss_all`` observation (pow-d,
+    FedCor), the reference's vmapped ``make_eval_fn`` loss, here as one
+    batched forward over all N·S rows."""
+    @torch.no_grad()
+    def poll(params, x, y, mask):
+        n, s = x.shape[:2]
+        logits = apply_fn(params, x.reshape(n * s, *x.shape[2:]))
+        return masked_ce(logits.reshape(n, s, -1), y, mask)
+
+    return poll

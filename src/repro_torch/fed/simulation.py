@@ -2,7 +2,7 @@
 
 The port of the reference's ``fed/simulation.py``: a multi-α Dirichlet
 cohort over the synthetic Gaussian-mixture task, paper-cnn or
-paper-mlp, the HiCS-FL selector and the server's round loop.  The data
+paper-mlp, any of the six selectors and the server's round loop.  The data
 and the partition come from ``np.random.default_rng(spec.seed)`` by
 the reference's own code path, so both packages see identical arrays.
 """
@@ -74,3 +74,21 @@ def build(spec: ExperimentSpec, device="cuda"):
             "client_sizes": M.sum(axis=1), "prototypes": protos}
     return server, info
 
+
+def run_experiment(spec: ExperimentSpec, progress: bool = False,
+                   device="cuda") -> Dict[str, Any]:
+    """Build and run one experiment; the history with the partition's
+    label distributions and client alphas."""
+    server, info = build(spec, device=device)
+    hist = server.run(progress=progress)
+    hist["label_dists"] = info["label_dists"].tolist()
+    hist["client_alpha"] = info["client_alpha"].tolist()
+    return hist
+
+
+# The paper's concentration-parameter settings (§4.1), FMNIST block.
+PAPER_SETTINGS = {
+    "setting1": (0.001, 0.002, 0.005, 0.01, 0.5),   # 80% severe + 20% bal
+    "setting2": (0.001, 0.002, 0.005, 0.01, 0.2),   # 80% severe + 20% mild
+    "setting3": (0.001,),                            # all severe
+}

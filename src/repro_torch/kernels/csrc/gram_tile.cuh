@@ -1,14 +1,20 @@
-// Shared tile loop and Eq. 9 epilogue of the two Gram kernels
-// (gram_update.cu, pairwise.cu).
+// Shared tile loop and distance epilogues (Eq. 9, the angle alone, the
+// Euclidean distance) of the two Gram kernels (gram_update.cu,
+// pairwise.cu).
 //
 // One block of TN x TM threads computes a TM x TN tile of A·Bᵀ.  Row
 // and column tiles of the operands are staged through shared memory in
-// chunks of TC columns, and each thread keeps its output's sum in one
-// f32 register.  The sum over C is taken in one fixed order, one fmaf
-// per column in increasing c, with no split-K and no atomics.  fmaf's
-// two factors commute exactly, so <a_u, a_v> and <a_v, a_u> are
-// bit-equal, and so are the distances built from them: the K x K block
-// of the scattered cache and the pairwise matrix are exactly symmetric.
+// chunks of TC columns.  Each thread sums its chunk in one f32 register,
+// one fmaf per column in increasing c, and adds the chunk's sum into its
+// total with Kahan compensation: a two-level sum, as the TPU kernel's
+// per-block partial products are, whose error stays near that of a
+// 32-term sum at any C (a single running sum over C = 158,570 columns
+// was ~175x less accurate than cuBLAS's).  The order is fixed, with no
+// split-K and no atomics, and fmaf's two factors commute exactly, so
+// <a_u, a_v> and <a_v, a_u> are bit-equal, and so are the distances
+// built from them: the K x K block of the scattered cache and the
+// pairwise matrix are exactly symmetric.  For C <= TC the total is the
+// chunk's sum itself.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,7 +38,7 @@ __device__ inline float tile_dot(const float* __restrict__ a, int ra,
   __shared__ float as[TM][TC + 1];
   __shared__ float bs[TN][TC + 1];
   const int tid = threadIdx.y * TN + threadIdx.x;
-  float acc = 0.0f;
+  float acc = 0.0f, comp = 0.0f;  // Kahan sum of the chunks' sums
   for (int c0 = 0; c0 < c; c0 += TC) {
     // neighbouring threads read neighbouring columns of one row
     for (int e = tid; e < TM * TC; e += TM * TN) {
@@ -47,23 +53,48 @@ __device__ inline float tile_dot(const float* __restrict__ a, int ra,
     }
     __syncthreads();
     const int lim = min(TC, c - c0);
+    float part = 0.0f;
     for (int kk = 0; kk < lim; ++kk) {
-      acc = fmaf(as[threadIdx.y][kk], bs[threadIdx.x][kk], acc);
+      part = fmaf(as[threadIdx.y][kk], bs[threadIdx.x][kk], part);
     }
+    // each step rounded on its own: nothing here may be reassociated
+    const float y = __fsub_rn(part, comp);
+    const float t = __fadd_rn(acc, y);
+    comp = __fsub_rn(__fsub_rn(t, acc), y);
+    acc = t;
     __syncthreads();
   }
   return acc;
 }
 
-// arccos(clip(dot / (max(|a|, eps) max(|b|, eps)))) + lam |Ĥa - Ĥb|,
-// with the angle zeroed on the true diagonal.  Divides after the dot,
-// as the TPU kernel does.
-__device__ inline float eq9(float dot, float na, float nb, float ha,
-                            float hb, bool diag, float lam, float eps) {
+// arccos(clip(dot / (max(|a|, eps) max(|b|, eps)))), zeroed on the
+// true diagonal: the angular distance.  Divides after the dot, as the
+// TPU kernel does.
+__device__ inline float angle(float dot, float na, float nb, bool diag,
+                              float eps) {
   const float denom = fmaxf(na, eps) * fmaxf(nb, eps);
   const float cs = fminf(fmaxf(dot / denom, COS_LO), COS_HI);
-  const float ang = diag ? 0.0f : acosf(cs);
-  return ang + lam * fabsf(ha - hb);
+  return diag ? 0.0f : acosf(cs);
+}
+
+// Eq. 9: angle(...) + lam |Ĥa - Ĥb|.
+__device__ inline float eq9(float dot, float na, float nb, float ha,
+                            float hb, bool diag, float lam, float eps) {
+  return angle(dot, na, nb, diag, eps) + lam * fabsf(ha - hb);
+}
+
+// Euclidean distance from the cached norms,
+// sqrt(max((|a|² + |b|²) − 2<a, b>, 0)), zeroed on the true diagonal.
+// Each step is rounded on its own (__fmul_rn, __fadd_rn, __fsub_rn
+// are never contracted into an fma), in the reference's order.  nvcc
+// would otherwise contract na·na + nb·nb into fmaf(na, na, nb·nb),
+// whose operands do not commute, and (u, v) and (v, u) could differ by
+// an ulp; written out, the sum commutes exactly, so the distance of
+// (u, v) is bit-equal to that of (v, u) as the dot product is.
+__device__ inline float l2(float dot, float na, float nb, bool diag) {
+  const float sq = __fadd_rn(__fmul_rn(na, na), __fmul_rn(nb, nb));
+  const float d2 = __fsub_rn(sq, __fmul_rn(2.0f, dot));
+  return diag ? 0.0f : sqrtf(fmaxf(d2, 0.0f));
 }
 
 }  // namespace gram

@@ -3,6 +3,8 @@
     fused_row_stats(updates, T)             (N, C) -> (Ĥ, norm, RMS)
     hics_selection_step(updates, T, lam)    (N, C) -> (Ĥ (N,), D (N, N))
     hics_selection_step_cached(...)         K-row incremental refresh
+    gram_row_update(updates, stats, ids)    (K, N) strip, any epilogue
+    cached_feature_step(feats, ...)         K-row refresh, cosine or l2
     pairwise_distances(updates, T, lam)     (N, C) -> (N, N)   [Eq. 9]
     estimate_entropies(updates, T)          (N, C) -> (N,)
     gqa_decode_attention(q, k, v, length)   one-token flash decode
@@ -56,6 +58,27 @@ def hics_selection_step_cached(updates: torch.Tensor, dist: torch.Tensor,
     return gram_update.cached_selection_step(
         updates, dist, stats, ids, temperature, lam=lam,
         normalize=normalize)
+
+
+def gram_row_update(updates: torch.Tensor, stats: torch.Tensor,
+                    ids: torch.Tensor, lam: float = 10.0,
+                    epilogue: str = "arccos", *, device="cuda"):
+    """(N, C), (N, 2) current [norm, Ĥ], (K,) ids -> the (K, N) strip
+    of the ``epilogue`` distance ("arccos", "cosine" or "l2")."""
+    _on(device, updates, stats, ids)
+    return gram_update.gram_row_update(updates, stats, ids, lam=lam,
+                                       epilogue=epilogue)
+
+
+def cached_feature_step(feats: torch.Tensor, dist: torch.Tensor,
+                        stats: torch.Tensor, ids: torch.Tensor,
+                        metric: str = "cosine", *, device="cuda"):
+    """(N, F) features, cached (dist (N, N), stats (N, 2) = [norm, 0]),
+    (K,) refreshed ids -> (dist, stats), the rows and columns of
+    ``ids`` recomputed by the ``metric`` ("cosine" or "l2") strip."""
+    _on(device, feats, dist, stats, ids)
+    return gram_update.cached_feature_step(feats, dist, stats, ids,
+                                           metric=metric)
 
 
 def pairwise_distances(updates: torch.Tensor, temperature: float,

@@ -4,8 +4,9 @@ Replaces the TPU kernel ``src/repro/kernels/pairwise.py:
 _pairwise_kernel`` (via ``_pairwise_padded``,
 ``pairwise_distance_pallas`` and ``hics_selection_step_pallas``) with
 ``csrc/pairwise.cu``: the strip kernel's tile loop over (N tiles,
-N tiles), the diagonal zeroed, each sum over C in one fixed ``fmaf``
-order so the matrix is bit-symmetric.  At the slice's N = 50, C = 10
+N tiles), the diagonal zeroed, each sum over C in one fixed order
+(``fmaf`` within 32-column chunks, Kahan across them) so the matrix is
+bit-symmetric.  At the slice's N = 50, C = 10
 its time is the launch; at large N it rereads x once per 16-row tile,
 so it is bound by its shared-memory loads long before device memory.
 

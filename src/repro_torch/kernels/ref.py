@@ -72,18 +72,33 @@ def selection_step_ref(updates: torch.Tensor, temperature: float,
 
 
 def distance_strip_ref(updates: torch.Tensor, stats: torch.Tensor,
-                       ids: torch.Tensor, lam: float,
-                       eps: float = 1e-8) -> torch.Tensor:
-    """(N, C), (N, 2) current [norm, Ĥ], (K,) ids -> (K, N) Eq. 9
-    strip (arccos epilogue).  Unit rows use the cached norms; the true
-    diagonal is zeroed."""
+                       ids: torch.Tensor, lam: float, eps: float = 1e-8,
+                       epilogue: str = "arccos") -> torch.Tensor:
+    """(N, C), (N, 2) current [norm, Ĥ], (K,) ids -> (K, N) distance
+    strip; the true diagonal is zeroed.  ``epilogue``:
+
+      arccos — Eq. 9: arccos of the cosine + λ|ΔĤ| (HiCS)
+      cosine — the angle alone, stats[:, 1] unread (Clustered Sampling)
+      l2     — √(|a|² + |b|² − 2⟨a, b⟩) from the cached norms (DivFL)
+
+    Unit rows use the cached norms."""
     x = updates.float()
-    unit = x / torch.clamp(stats[:, 0:1], min=eps)
-    cos = torch.clamp(unit[ids] @ unit.T, COS_LO, COS_HI)
-    d = torch.arccos(cos)
+    if epilogue == "l2":
+        nr, nc = stats[ids, 0], stats[:, 0]
+        dot = x[ids] @ x.T
+        d = torch.sqrt(torch.clamp(
+            nr[:, None] ** 2 + nc[None, :] ** 2 - 2.0 * dot, min=0.0))
+    elif epilogue in ("arccos", "cosine"):
+        unit = x / torch.clamp(stats[:, 0:1], min=eps)
+        d = torch.arccos(torch.clamp(unit[ids] @ unit.T, COS_LO, COS_HI))
+    else:
+        raise ValueError(f"unknown epilogue {epilogue!r}; expected "
+                         "'arccos', 'cosine' or 'l2'")
     cols = torch.arange(x.shape[0], device=x.device)
     d = torch.where(ids[:, None] == cols[None, :], 0.0, d)
-    return d + lam * torch.abs(stats[ids, 1][:, None] - stats[None, :, 1])
+    if epilogue == "arccos":
+        d = d + lam * torch.abs(stats[ids, 1][:, None] - stats[None, :, 1])
+    return d
 
 
 def scatter_strip(dist: torch.Tensor, strip: torch.Tensor,
@@ -114,6 +129,39 @@ def cached_selection_step_ref(updates: torch.Tensor, dist: torch.Tensor,
     stats[ids] = torch.stack([n_rows, h_rows], dim=-1)
     strip = distance_strip_ref(x, stats, ids, lam, eps=eps)
     return stats[:, 1], scatter_strip(dist, strip, ids), stats
+
+
+def scatter_strip_symmetric(dist: torch.Tensor, strip: torch.Tensor,
+                            ids: torch.Tensor) -> torch.Tensor:
+    """Write a (K, N) strip into rows AND columns ``ids`` of a copy of
+    ``dist``, the K×K block averaged with its transpose, so the result
+    is exactly symmetric whatever the strip's K×K block is (the
+    reference's ``_scatter_strip_symmetric``; a bit-symmetric block
+    comes through unchanged).  Duplicate ids write equal values."""
+    kk = strip[:, ids]
+    out = dist.clone()
+    out[ids] = strip
+    out[:, ids] = strip.T
+    out[ids[:, None], ids[None, :]] = 0.5 * (kk + kk.T)
+    return out
+
+
+def cached_feature_step_ref(feats: torch.Tensor, dist: torch.Tensor,
+                            stats: torch.Tensor, ids: torch.Tensor,
+                            metric: str = "cosine", eps: float = 1e-8):
+    """Incremental full-update distance step (CS, DivFL): refresh the
+    rows and columns of ``ids`` in the cached ``dist`` (N, N) and
+    ``stats`` (N, 2) = [L2 norm, 0] from the features (N, F) with the
+    selector's ``metric`` ("cosine" or "l2").  Returns (dist, stats);
+    K = 0 returns the cache unchanged."""
+    if ids.numel() == 0:
+        return dist, stats
+    x = feats.float()
+    n_rows = torch.linalg.vector_norm(x[ids], dim=-1)
+    stats = stats.clone()
+    stats[ids] = torch.stack([n_rows, torch.zeros_like(n_rows)], dim=-1)
+    strip = distance_strip_ref(x, stats, ids, 0.0, eps=eps, epilogue=metric)
+    return scatter_strip_symmetric(dist, strip, ids), stats
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -72,7 +72,7 @@ def apply_norm(x, p, kind: str):
     return layer_norm(x, p["scale"], p["bias"])
 
 
-def init_norm(d: int, kind: str, lead=(), device="cpu") -> dict:
+def init_norm(d: int, kind: str, lead=(), *, device) -> dict:
     if kind == "rmsnorm":
         return {"scale": torch.zeros((*lead, d), device=device)}
     return {"scale": torch.ones((*lead, d), device=device),
@@ -84,7 +84,7 @@ def init_norm(d: int, kind: str, lead=(), device="cpu") -> dict:
 # ---------------------------------------------------------------------------
 
 
-def rope_frequencies(head_dim: int, theta: float, device="cpu"):
+def rope_frequencies(head_dim: int, theta: float, device):
     exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
                              device=device) / head_dim
     return 1.0 / (theta ** exponents)            # (head_dim // 2,)

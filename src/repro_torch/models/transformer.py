@@ -63,9 +63,9 @@ def init_params(gen: torch.Generator, cfg) -> dict:
     dev, d = gen.device, cfg.d_model
     lead = (cfg.num_layers,)
     layers = {
-        "ln1": L.init_norm(d, cfg.norm, lead, dev),
+        "ln1": L.init_norm(d, cfg.norm, lead, device=dev),
         "attn": L.init_attention(gen, cfg, lead),
-        "ln2": L.init_norm(d, cfg.norm, lead, dev),
+        "ln2": L.init_norm(d, cfg.norm, lead, device=dev),
         "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.mlp, lead),
     }
     params = {

@@ -24,6 +24,7 @@ from repro_torch.core import (agglomerate_device, anneal_device,
                               estimate_entropy, head_bias_updates_stacked,
                               head_num_classes, hics_functional,
                               hierarchical_sample_device, label_entropy)
+from repro_torch.core import Observations as TObservations
 from torch_parity import each, select_noise
 
 def test_estimate_entropy_matches_jax():
@@ -192,7 +193,8 @@ def test_hics_functional_20_rounds_identical(incremental):
         db = (r.normal(size=(k, c)) * 0.05).astype(np.float32)
         jstate = jupdate(jstate, t, jids, Observations(
             bias_updates=jnp.asarray(db)))
-        tstate = tfn.update(tstate, t, tids, torch.tensor(db))
+        tstate = tfn.update(tstate, t, tids, TObservations(
+            bias_updates=torch.tensor(db)))
     np.testing.assert_allclose(tfn.entropies(tstate).numpy(),
                                np.asarray(jfn.entropies(jstate)),
                                atol=5e-5)

@@ -3,9 +3,10 @@
 * The port and ``chip_smoke.py`` import neither JAX nor anything of
   the JAX package ``repro``.
 * The kernel modules import without ``triton`` and without ``nvcc``.
-* Entry points default to the card (the ops, the experiment builder,
-  model init and the serve entry point): called with no device on a machine
-  without CUDA they raise instead of running on the CPU.
+* Entry points default to the card (the ops, the selector factories,
+  the experiment builder, model init and the serve entry point): called
+  with no device on a machine without CUDA they raise instead of
+  running on the CPU.
 """
 import ast
 import os
@@ -55,6 +56,7 @@ def test_kernel_modules_import_without_triton_or_nvcc(tmp_path):
         "import repro_torch.kernels.decode_attention\n"
         "from repro_torch.kernels import build\n"
         "import repro_torch.fed, repro_torch.core\n"
+        "import repro_torch.core.selectors.baselines\n"
         "import repro_torch.models, repro_torch.launch.serve\n"
         "assert build._loaded == {} and not any(build.launches.values())\n"
         "print('ok')\n")
@@ -99,6 +101,63 @@ def test_ops_without_device_raise_without_cuda(no_cuda):
             call()
 
 
+def test_baseline_entry_points_raise_without_cuda(no_cuda):
+    """The strip's epilogue ops, the full-update step and every selector
+    factory default to the card."""
+    from repro_torch.core import FUNCTIONAL, make_functional
+    from repro_torch.kernels import ops
+    x = torch.zeros(4, 10)
+    stats, ids = torch.ones(4, 2), torch.arange(2)
+    calls = [
+        lambda: ops.gram_row_update(x, stats, ids, epilogue="cosine"),
+        lambda: ops.gram_row_update(x, stats, ids, epilogue="l2"),
+        lambda: ops.cached_feature_step(x, torch.zeros(4, 4), stats, ids),
+        lambda: ops.cached_feature_step(x, torch.zeros(4, 4), stats, ids,
+                                        "l2"),
+    ] + [lambda name=name: make_functional(name, num_clients=4,
+                                           num_select=2, total_rounds=3)
+         for name in FUNCTIONAL]
+    assert len(calls) == 10
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_set_precision_full_f32_and_deterministic():
+    """The builder's precision settings: no TF32 anywhere, and only
+    deterministic cuDNN algorithms, so a card run can be repeated."""
+    from repro_torch.backend import set_precision
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cudnn.deterministic = False
+        set_precision()
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+        assert torch.backends.cudnn.deterministic
+        assert torch.get_float32_matmul_precision() == "highest"
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved[:3]
+        torch.set_float32_matmul_precision(saved[3])
+
+
+def test_layer_helpers_take_an_explicit_device():
+    """No helper of the LM layers places a tensor on a device of its own
+    choosing: the device is a required argument."""
+    import inspect
+    from repro_torch.models import layers
+    for fn in (layers.init_norm, layers.rope_frequencies):
+        param = inspect.signature(fn).parameters["device"]
+        assert param.default is inspect.Parameter.empty, fn.__name__
+    assert layers.rope_frequencies(8, 1e4, "cpu").device.type == "cpu"
+    with pytest.raises(TypeError):
+        layers.init_norm(8, "rmsnorm")
+
+
 def test_serve_entry_points_raise_without_cuda(no_cuda):
     """Model init, the cache and the serve entry point default to the card."""
     from repro_torch.launch import serve
@@ -126,6 +185,11 @@ def test_kernel_wrappers_refuse_cpu_tensors_at_launch():
     with pytest.raises(ValueError, match="CUDA"):
         gram_strip(x[:2], x, torch.ones(2, 2), torch.ones(4, 2),
                    torch.zeros(2, dtype=torch.int32), 10.0)
+    for epilogue in ("cosine", "l2"):
+        with pytest.raises(ValueError, match="CUDA"):
+            gram_strip(x[:2], x, torch.ones(2, 2), torch.ones(4, 2),
+                       torch.zeros(2, dtype=torch.int32), 0.0,
+                       epilogue=epilogue)
     with pytest.raises(ValueError, match="CUDA"):
         pairwise(x, torch.ones(4, 2), 10.0)
     with pytest.raises(ValueError, match="CUDA"):

@@ -21,13 +21,15 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels.fused_stats import fused_stats_pallas
-from repro.kernels.gram_update import (cached_selection_step_pallas,
+from repro.kernels.gram_update import (cached_feature_step_pallas,
+                                       cached_selection_step_pallas,
                                        gram_row_update_pallas)
 from repro.kernels.hetero_entropy import entropy_pallas
 from repro.kernels.pairwise import hics_selection_step_pallas
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_stats import fused_stats
-from repro_torch.kernels.gram_update import (cached_selection_step,
+from repro_torch.kernels.gram_update import (cached_feature_step,
+                                             cached_selection_step,
                                              gram_row_update)
 from repro_torch.kernels.pairwise import hics_selection_step
 from torch_parity import each
@@ -199,6 +201,151 @@ def test_ops_cpu_dispatch_runs_plain_versions():
                        ref.decode_attention_ref(q, kv, kv, 2))
     with pytest.raises(ValueError):
         ops.fused_row_stats(x, 0.63, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# the strip's cosine and l2 epilogues and the full-update cache step
+# (Clustered Sampling, DivFL), at the tolerances of the reference's own
+# tests (tests/test_full_update_selectors.py:66-200): 1e-5 against the
+# lax oracles and a from-scratch build, 1e-4 against Pallas
+# ---------------------------------------------------------------------------
+
+FEATURE_SHAPES = [(5, 10), (17, 769), (20, 260), (50, 1030)]
+
+
+def _scratch(x: torch.Tensor, metric: str) -> torch.Tensor:
+    """The dense from-scratch distance with a zero diagonal."""
+    n = x.shape[0]
+    if metric == "cosine":
+        unit = x / torch.clamp(torch.linalg.vector_norm(
+            x, dim=-1, keepdim=True), min=1e-8)
+        d = torch.arccos(torch.clamp(unit @ unit.T, ref.COS_LO, ref.COS_HI))
+    else:
+        sq = (x * x).sum(dim=1)
+        d = torch.sqrt(torch.clamp(sq[:, None] + sq[None, :]
+                                   - 2.0 * (x @ x.T), min=0.0))
+    return torch.where(torch.eye(n, dtype=torch.bool), 0.0, d)
+
+
+def test_feature_strip_plain_vs_pallas_and_ref():
+    """cosine and l2 strips; the entropy lane holds values the two
+    epilogues must not read."""
+    each(_feature_strip_case, FEATURE_SHAPES, ["cosine", "l2"])
+
+
+def _feature_strip_case(shape, epilogue):
+    n, c = shape
+    x = _x(n, c, seed=3) * 2.5
+    rng = np.random.default_rng(n)
+    stats = np.stack([np.linalg.norm(x.astype(np.float64), axis=-1),
+                      rng.uniform(0.0, 2.3, n)], -1).astype(np.float32)
+    ids = np.array([n - 1, 0, n // 2, 0][: min(4, n)], np.int32)  # dup 0
+    got = gram_row_update(torch.tensor(x), torch.tensor(stats),
+                          torch.tensor(ids, dtype=torch.int64), 0.0,
+                          epilogue=epilogue)
+    args = (jnp.asarray(x), jnp.asarray(stats), jnp.asarray(ids))
+    pallas = gram_row_update_pallas(*args, lam=0.0, epilogue=epilogue,
+                                    interpret=True)
+    oracle = jref.distance_strip_ref(*args, 0.0, epilogue=epilogue)
+    _close(got, pallas, 1e-4, rtol=1e-4)
+    _close(got, oracle, 1e-5, rtol=1e-5)
+    assert all(float(got[u, i]) == 0.0 for u, i in enumerate(ids))
+    # the entropy lane is not read: another one changes nothing
+    stats2 = torch.tensor(stats).clone()
+    stats2[:, 1] = -7.0
+    assert torch.equal(got, gram_row_update(
+        torch.tensor(x), stats2, torch.tensor(ids, dtype=torch.int64), 0.0,
+        epilogue=epilogue))
+
+
+def test_cached_feature_step_plain_vs_pallas():
+    """Two successive refreshes of some, duplicate and no rows: the
+    plain step against Pallas and the lax oracle, exactly symmetric
+    with a zero diagonal, and equal to a from-scratch build."""
+    each(_cached_feature_case, FEATURE_SHAPES, ["cosine", "l2"],
+         ["some", "dups", "none"])
+
+
+def _cached_feature_case(shape, metric, which):
+    n, c = shape
+    rng = np.random.default_rng(n + c)
+    x = (rng.normal(size=(n, c)) * 0.05).astype(np.float32)
+    tx = torch.tensor(x)
+    dist, stats = cached_feature_step(tx, torch.zeros(n, n),
+                                      torch.zeros(n, 2), torch.arange(n),
+                                      metric=metric)
+    jdist, jstats = cached_feature_step_pallas(
+        jnp.asarray(x), jnp.zeros((n, n)), jnp.zeros((n, 2)),
+        jnp.arange(n, dtype=jnp.int32), metric=metric, interpret=True)
+    odist, ostats = jnp.asarray(dist.numpy()), jnp.asarray(stats.numpy())
+    for step in range(2):
+        sel = {"some": [1, n - 1, n // 3], "dups": [2, 2, 0, n - 1],
+               "none": []}[which]
+        ids = np.array(sel, np.int32)
+        x = x.copy()
+        x[ids] = (rng.normal(size=(len(ids), c)) * 0.05).astype(np.float32)
+        tx, tids = torch.tensor(x), torch.tensor(ids, dtype=torch.int64)
+        before = (dist, stats)
+        dist, stats = cached_feature_step(tx, dist, stats, tids,
+                                          metric=metric)
+        jdist, jstats = cached_feature_step_pallas(
+            jnp.asarray(x), jdist, jstats, jnp.asarray(ids), metric=metric,
+            interpret=True)
+        odist, ostats = jref.cached_feature_step_ref(
+            jnp.asarray(x), odist, ostats, jnp.asarray(ids), metric=metric)
+        if not sel:
+            assert torch.equal(dist, before[0])
+            assert torch.equal(stats, before[1])
+    _close(dist, jdist, 1e-4, rtol=1e-4)
+    _close(dist, odist, 1e-5, rtol=1e-5)
+    _close(stats, jstats, 1e-5, rtol=1e-5)
+    _close(stats[:, 0], torch.linalg.vector_norm(tx, dim=-1), 1e-5)
+    assert torch.all(stats[:, 1] == 0.0)
+    _close(dist, _scratch(tx, metric), 1e-5)
+    d = dist.numpy()
+    assert np.array_equal(d, d.T)
+    assert np.all(np.diag(d) == 0.0)
+
+
+def test_scatter_strip_symmetric_averages_the_block():
+    """An asymmetric K×K block is replaced by its transpose average;
+    rows and columns outside it carry the strip and its transpose."""
+    n = 7
+    dist = torch.zeros(n, n)
+    strip = torch.tensor(_x(3, n, seed=9))
+    ids = torch.tensor([4, 1, 6])
+    out = ref.scatter_strip_symmetric(dist, strip, ids)
+    assert torch.equal(out, out.T)
+    kk = strip[:, ids]
+    assert torch.equal(out[ids[:, None], ids[None, :]], 0.5 * (kk + kk.T))
+    others = torch.tensor([0, 2, 3, 5])
+    assert torch.equal(out[ids][:, others], strip[:, others])
+    want = jref._scatter_strip_symmetric(
+        jnp.zeros((n, n)), jnp.asarray(strip.numpy()),
+        jnp.asarray(ids.numpy()))
+    assert np.array_equal(out.numpy(), np.asarray(want))
+
+
+def test_feature_ops_cpu_dispatch_runs_plain_versions():
+    x = torch.tensor(_x(12, 40))
+    stats = torch.stack([torch.linalg.vector_norm(x, dim=-1),
+                         torch.zeros(12)], -1)
+    ids = torch.tensor([3, 0, 11])
+    for epi in ("arccos", "cosine", "l2"):
+        got = ops.gram_row_update(x, stats, ids, 10.0, epilogue=epi,
+                                  device="cpu")
+        assert torch.equal(got, ref.distance_strip_ref(x, stats, ids, 10.0,
+                                                       epilogue=epi))
+    dist = torch.zeros(12, 12)
+    for metric in ("cosine", "l2"):
+        got = ops.cached_feature_step(x, dist, stats, ids, metric,
+                                      device="cpu")
+        want = ref.cached_feature_step_ref(x, dist, stats, ids, metric)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="metric"):
+        ops.cached_feature_step(x, dist, stats, ids, "arccos", device="cpu")
+    with pytest.raises(ValueError, match="epilogue"):
+        ops.gram_row_update(x, stats, ids, epilogue="dot", device="cpu")
 
 
 # ---------------------------------------------------------------------------

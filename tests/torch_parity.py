@@ -4,7 +4,8 @@ reference: numpy conversion and a replayer of the reference's key chain.
 The port takes its random draws (Gumbel noise, epoch permutations) as
 tensors.  :class:`JaxKeyChain` evaluates ``jax.random`` on exactly the
 keys the reference's host-loop server would use
-(``fed/server.py:170,270-273``, ``core/sampling.py:116,144-150``,
+(``fed/server.py:170,270-273,298-301``, ``core/sampling.py:96-116,
+144-150``, ``core/selectors/baselines.py:218``,
 ``fed/client.py:127,151``) and hands the same numbers to the port.
 """
 from __future__ import annotations
@@ -46,18 +47,23 @@ def to_np(tree):
 
 def select_noise(k_sel, n: int, k: int, m: int) -> SelectNoise:
     """The Gumbel draws of one reference ``select`` on key ``k_sel``:
-    the coverage sweep's (N,) and the two-stage sampler's per-draw
-    (M,) cluster and (N,) client noise."""
+    the coverage sweep's and weighted sampler's (N,), the two-stage
+    sampler's per-draw (M,) cluster and (N,) client noise, and
+    Clustered Sampling's (K, N) pick, each on the key the reference
+    draws it from."""
+    k = min(k, n)
     cover = jax.random.gumbel(k_sel, (n,), jnp.float32)
+    pick = jax.random.gumbel(k_sel, (k, n), jnp.float32)
     cluster, client = [], []
     key = k_sel
-    for _ in range(min(k, n)):
+    for _ in range(k):
         key, kc, kj = jax.random.split(key, 3)
         cluster.append(jax.random.gumbel(kc, (m,), jnp.float32))
         client.append(jax.random.gumbel(kj, (n,), jnp.float32))
     return SelectNoise(torch.tensor(np.asarray(cover)),
                        torch.tensor(np.stack(cluster)),
-                       torch.tensor(np.stack(client)))
+                       torch.tensor(np.stack(client)),
+                       torch.tensor(np.asarray(pick)))
 
 
 def epoch_perms(k_loc, k: int, epochs: int, s_max: int) -> torch.Tensor:
@@ -73,18 +79,26 @@ def epoch_perms(k_loc, k: int, epochs: int, s_max: int) -> torch.Tensor:
 
 class JaxKeyChain:
     """Replays the reference server's per-round key chain as the
-    port's :class:`RoundDraws`; call it with the round index."""
+    port's :class:`RoundDraws`; call it with the round index.
+    ``grad_all`` follows DivFL's ideal setting, whose all-clients poll
+    splits one more key off the chain after each round's
+    (``fed/server.py:298-301``): one (N, 1, S_max) permutation set."""
 
     def __init__(self, seed: int, n: int, k: int, m: int, epochs: int,
-                 s_max: int):
+                 s_max: int, grad_all: bool = False):
         self.rng = jax.random.PRNGKey(seed)
         self.rng, self.init_key = jax.random.split(self.rng)
         self.n, self.k, self.m = n, k, m
         self.epochs, self.s_max = epochs, s_max
+        self.grad_all = grad_all
 
     def __call__(self, t: int) -> RoundDraws:
         self.rng, kr = jax.random.split(self.rng)
         k_sel, k_loc = jax.random.split(kr)
+        grad_perms = None
+        if self.grad_all:
+            self.rng, kg = jax.random.split(self.rng)
+            grad_perms = epoch_perms(kg, self.n, 1, self.s_max)
         return RoundDraws(select_noise(k_sel, self.n, self.k, self.m),
                           epoch_perms(k_loc, self.k, self.epochs,
-                                      self.s_max))
+                                      self.s_max), grad_perms)
