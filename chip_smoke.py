@@ -2,11 +2,13 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels of ``src/repro_torch/kernels/csrc`` with
+Builds the five CUDA kernels of ``src/repro_torch/kernels/csrc`` with
 nvcc, holds each against its plain PyTorch version on the card at the
-slice's shapes and at wider ones, runs the slice (one 14-round HiCS-FL
-run of paper-cnn at full width: 50 clients, K=5, 10,000 samples) on
-the card and holds its first rounds against the port's own CPU run,
+slice's shapes and at wider ones (the Gram kernels in both operand
+modes, the strip split across C and unsplit), runs the slice (one
+14-round HiCS-FL run of paper-cnn at full width: 50 clients, K=5,
+10,000 samples) on the card and holds its first rounds against the
+port's own CPU run,
 then checks the incremental cache on the run's final Δb against the
 pairwise kernel and the plain version, drives the from-scratch path
 (pairwise kernel) in a second run, and holds one more clustered select
@@ -16,7 +18,11 @@ the same spec (random, pow-d, cs, divfl, divfl with
 refresh="selected", fedcor), each's first rounds against the port's CPU
 run, the cs and divfl-selected caches (the strip kernel's cosine and
 l2 epilogues) against a plain from-scratch build, and one more select
-of each against the plain select on the CPU.  Then the serving
+of each against the plain select on the CPU.  Phase ``hics_bf16``
+runs the slice's spec with ``gram_in_bf16=True`` (bf16 Gram operands,
+f32 sums): its cache against the plain bf16 build and the pairwise
+kernel, one more select against the plain bf16 select on the CPU, and
+an ``incremental=False`` run (pairwise in bf16).  Then the serving
 slice: the two LM kernels (hetero_entropy, decode_attention) against
 their plain versions, the entropy kernel's path through
 ``ops.estimate_entropies``, qwen2.5-3b at full width and depth through
@@ -34,7 +40,10 @@ entropy term carries Ĥ's last-bit rounding into distances near 4);
 Euclidean (l2) distances to 1e-5 times the largest row norm absolute
 plus 1e-5 relative: √(|a|² + |b|² − 2⟨a, b⟩) cancels near 0, where the
 f32 rounding of the sum, relative to the squared norms, is what
-remains.
+remains.  The bf16 cases (``gram_in_bf16``) are held against the plain
+bf16 versions at the same tolerances: both read the same bf16-rounded
+operands, whose products are exact in f32, so only the order of the
+sums differs, as in f32.
 The serving kernels and the parity phase state theirs beside each
 check, at the reference's own kernel tolerances.
 """
@@ -64,7 +73,8 @@ from repro_torch.fed import (ExperimentSpec, LocalSpec, build,  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.fused_stats import fused_stats_rows  # noqa: E402
-from repro_torch.kernels.gram_update import gram_strip  # noqa: E402
+from repro_torch.kernels.gram_update import (  # noqa: E402
+    gram_strip, strip_splits)
 from repro_torch.kernels.pairwise import pairwise  # noqa: E402
 from repro_torch.kernels.hetero_entropy import entropy_rows  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -158,6 +168,24 @@ def time_ms_rotating(fns, iters: int = 48) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fns, iters: int = 24) -> float:
+    """Mean device time of a call cycling through ``fns``: the sum of
+    the CUDA kernels' own spans in ``torch.profiler`` over ``iters``
+    calls, without the host's time between them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / iters / 1e3
+
+
 def bound(nbytes: float, flops: float):
     """(bound_ms, bound_by): the larger of bytes over HBM rate and
     operations over the f32 rate.  The callers count the least work
@@ -209,38 +237,49 @@ def fused_stats_case(n, c, temperature, scaled, dev, timed=False):
     return out
 
 
-def strip_case(k, n, c, temperature, normalize, dev, timed=False):
+def _mode(bf16: bool) -> str:
+    return ",bf16" if bf16 else ""
+
+
+def strip_case(k, n, c, temperature, normalize, dev, timed=False,
+               bf16=False):
     x = rows(n, c, seed=k + n + c, dev=dev)
     stats = stats_of(x, temperature, normalize).contiguous()
     ids = torch.arange(0, n, max(1, n // k), device=dev)[:k]
     ids32 = ids.to(torch.int32)
     r, s_r = x[ids].contiguous(), stats[ids].contiguous()
-    got = gram_strip(r, x, s_r, stats, ids32, LAM)
-    want = ref.distance_strip_ref(x, stats, ids, LAM)
-    tag = f"gram_update({k}x{n},{c},normalize={normalize})"
+    got = gram_strip(r, x, s_r, stats, ids32, LAM, gram_in_bf16=bf16)
+    want = ref.distance_strip_ref(x, stats, ids, LAM, gram_in_bf16=bf16)
+    tag = f"gram_update({k}x{n},{c},normalize={normalize}{_mode(bf16)})"
     err = check(tag, got, want, 1e-5, 1e-5)
     # bit-symmetry of the K x K block, as the cache scatter needs it
     kk = got[:, ids]
     require(tag + ": K x K block not bit-symmetric",
             bool(torch.equal(kk, kk.T)))
-    out = {"case": tag, "max_abs_err": err}
+    require(tag + ": true diagonal not zero",
+            bool((kk.diagonal() == 0).all()))
+    out = {"case": tag, "max_abs_err": err, "splits": strip_splits(k, n, c)}
     if timed:
         out["ms"] = time_ms(lambda: gram_strip(r, x, s_r, stats, ids32,
-                                               LAM))
+                                               LAM, gram_in_bf16=bf16))
         out["plain_ms"] = time_ms(
-            lambda: ref.distance_strip_ref(x, stats, ids, LAM))
+            lambda: ref.distance_strip_ref(x, stats, ids, LAM,
+                                           gram_in_bf16=bf16))
         # the K rows and their stats are a gather of x and stats_all;
         # the K x K block is symmetric and its diagonal zero
         pairs = k * n - k * (k + 1) // 2
         out["bound_ms"], out["bound_by"] = bound(
             4 * (n * c + 2 * n + k + k * n), 2 * c * pairs + 10 * pairs)
+        out["bound_share"] = out["bound_ms"] / out["ms"]
     return out
 
 
-def feature_strip_case(k, n, c, epilogue, dev, timed=False):
+def feature_strip_case(k, n, c, epilogue, dev, timed=False, bf16=False):
     """The strip kernel's cosine or l2 epilogue against its plain version
     (tolerances in the module docstring).  The entropy lane of the stats
-    holds random values that neither epilogue may read."""
+    holds random values that neither epilogue may read.  Where C is
+    split (S > 1), the strip is also computed unsplit (S = 1): the two
+    sum in other orders and agree within the same tolerance."""
     x = rows(n, c, seed=k + n + c + 7, dev=dev)
     norms = torch.linalg.vector_norm(x, dim=-1)
     gen = torch.Generator().manual_seed(n)
@@ -249,9 +288,11 @@ def feature_strip_case(k, n, c, epilogue, dev, timed=False):
     ids = torch.arange(0, n, max(1, n // k), device=dev)[:k]
     ids32 = ids.to(torch.int32)
     r, s_r = x[ids].contiguous(), stats[ids].contiguous()
-    got = gram_strip(r, x, s_r, stats, ids32, 0.0, epilogue=epilogue)
-    want = ref.distance_strip_ref(x, stats, ids, 0.0, epilogue=epilogue)
-    tag = f"gram_update.{epilogue}({k}x{n},{c})"
+    got = gram_strip(r, x, s_r, stats, ids32, 0.0, epilogue=epilogue,
+                     gram_in_bf16=bf16)
+    want = ref.distance_strip_ref(x, stats, ids, 0.0, epilogue=epilogue,
+                                  gram_in_bf16=bf16)
+    tag = f"gram_update.{epilogue}({k}x{n},{c}{_mode(bf16)})"
     atol = 1e-5 if epilogue == "cosine" else 1e-5 * float(norms.max())
     err = check(tag, got, want, atol, 1e-5)
     kk = got[:, ids]
@@ -259,20 +300,35 @@ def feature_strip_case(k, n, c, epilogue, dev, timed=False):
             bool(torch.equal(kk, kk.T)))
     require(tag + ": true diagonal not zero",
             bool((kk.diagonal() == 0).all()))
-    out = {"case": tag, "max_abs_err": err, "atol": atol}
+    splits = strip_splits(k, n, c)
+    out = {"case": tag, "max_abs_err": err, "atol": atol, "splits": splits}
+    if splits > 1:
+        one = gram_strip(r, x, s_r, stats, ids32, 0.0, epilogue=epilogue,
+                         gram_in_bf16=bf16, splits=1)
+        out["unsplit_max_abs_diff"] = check(tag + " unsplit (S = 1)", one,
+                                            want, atol, 1e-5)
     if timed:
         # copies of x past the 50 MB L2, so each call reads device
         # memory, as the selector's refresh after a round does
         copies = [(xc, xc[ids].contiguous()) for xc in [x] + [
             x.clone() for _ in range(int(np.ceil(60e6 / x.nbytes)))]]
-        out["ms"] = time_ms_rotating(
-            [lambda xc=xc, rc=rc: gram_strip(rc, xc, s_r, stats, ids32, 0.0,
-                                             epilogue=epilogue)
-             for xc, rc in copies])
-        out["plain_ms"] = time_ms_rotating(
-            [lambda xc=xc: ref.distance_strip_ref(xc, stats, ids, 0.0,
-                                                  epilogue=epilogue)
-             for xc, _ in copies])
+        kern = [lambda xc=xc, rc=rc: gram_strip(rc, xc, s_r, stats, ids32,
+                                                0.0, epilogue=epilogue,
+                                                gram_in_bf16=bf16)
+                for xc, rc in copies]
+        plain = [lambda xc=xc: ref.distance_strip_ref(xc, stats, ids, 0.0,
+                                                      epilogue=epilogue,
+                                                      gram_in_bf16=bf16)
+                 for xc, _ in copies]
+        cdist = [lambda xc=xc, rc=rc: torch.cdist(rc, xc)
+                 for xc, rc in copies]
+        out["ms"] = time_ms_rotating(kern)
+        out["plain_ms"] = time_ms_rotating(plain)
+        # the kernels' own device time (both launches), beside the
+        # host-paced time of back-to-back calls above
+        out["device_ms"] = device_ms(kern)
+        out["plain_device_ms"] = device_ms(plain)
+        out["cdist_device_ms"] = device_ms(cdist)
         # rows and x read once, their norms, the ids and the strip;
         # one dot product per distinct off-diagonal pair (the K x K
         # block is symmetric with a zero diagonal), ~10 epilogue ops
@@ -280,15 +336,22 @@ def feature_strip_case(k, n, c, epilogue, dev, timed=False):
         out["bound_ms"], out["bound_by"] = bound(
             4 * (k * c + n * c + k + n + k + k * n),
             2 * c * pairs + 10 * pairs)
-        if epilogue == "l2":
-            # torch.cdist: the same distances but for the zeroed diagonal
+        out["bound_share"] = out["bound_ms"] / out["ms"]
+        out["device_bound_share"] = out["bound_ms"] / out["device_ms"]
+        # torch.cdist: f32 Euclidean distances of the same rows, timed
+        # beside every epilogue as the yardstick of one library call
+        out["cdist_ms"] = time_ms_rotating(cdist)
+        if epilogue == "l2" and not bf16:
+            # the same distances but for the zeroed diagonal
             cd = torch.cdist(r, x)
             off = torch.ones_like(cd, dtype=torch.bool)
             off[torch.arange(k), ids] = False
-            out["library_ms"] = time_ms_rotating(
-                [lambda xc=xc, rc=rc: torch.cdist(rc, xc)
-                 for xc, rc in copies])
+            out["library_ms"] = out["cdist_ms"]
             out["library_max_abs_err"] = float((cd - want)[off].abs().max())
+        elif epilogue == "l2":
+            out["library_ms"] = None
+            out["library_note"] = ("no single PyTorch call computes the "
+                                   "distances of bf16-rounded operands")
         else:
             out["library_ms"] = None
             out["library_note"] = ("no single PyTorch call computes the "
@@ -296,24 +359,28 @@ def feature_strip_case(k, n, c, epilogue, dev, timed=False):
     return out
 
 
-def pairwise_case(n, c, temperature, normalize, dev, timed=False):
+def pairwise_case(n, c, temperature, normalize, dev, timed=False,
+                  bf16=False):
     x = rows(n, c, seed=3 * n + c, dev=dev)
     stats = stats_of(x, temperature, normalize).contiguous()
-    got = pairwise(x, stats, LAM)
-    want = ref.pairwise_distance_ref(x, stats[:, 1], LAM)
-    tag = f"pairwise({n},{c},normalize={normalize})"
+    got = pairwise(x, stats, LAM, gram_in_bf16=bf16)
+    want = ref.pairwise_distance_ref(x, stats[:, 1], LAM, gram_in_bf16=bf16)
+    tag = f"pairwise({n},{c},normalize={normalize}{_mode(bf16)})"
     err = check(tag, got, want, 1e-5, 1e-5)
     require(tag + ": not bit-symmetric", bool(torch.equal(got, got.T)))
     require(tag + ": diagonal not zero",
             bool((torch.diagonal(got) == 0).all()))
     out = {"case": tag, "max_abs_err": err}
     if timed:
-        out["ms"] = time_ms(lambda: pairwise(x, stats, LAM))
+        out["ms"] = time_ms(lambda: pairwise(x, stats, LAM,
+                                             gram_in_bf16=bf16))
         out["plain_ms"] = time_ms(
-            lambda: ref.pairwise_distance_ref(x, stats[:, 1], LAM))
+            lambda: ref.pairwise_distance_ref(x, stats[:, 1], LAM,
+                                              gram_in_bf16=bf16))
         pairs = n * (n - 1) // 2        # symmetric, zero diagonal
         out["bound_ms"], out["bound_by"] = bound(
             4 * (n * c + 2 * n + n * n), 2 * c * pairs + 10 * pairs)
+        out["bound_share"] = out["bound_ms"] / out["ms"]
     return out
 
 
@@ -342,6 +409,10 @@ def cached_step_case(n, k, c, normalize, dev):
 
 
 def kernel_phase(dev):
+    """Each kernel against its plain version.  Returns the cases by
+    kernel, the strip's timed cases on the baselines' path by epilogue
+    (f32 and bf16), and the Gram kernels' timed case at the slice's
+    shape by operand mode."""
     t0 = time.perf_counter()
     slice_cases = {
         "fused_stats": [fused_stats_case(5, 10, T_SLICE, True, dev, True),
@@ -359,6 +430,27 @@ def kernel_phase(dev):
                                        feature_strip_case(
                                            10, 512, 1024, epilogue, dev,
                                            timed=True)]
+    # gram_in_bf16: every epilogue at the slice's shape and at
+    # K10×N512×C1024, cosine and l2 on the baselines' path; pairwise at
+    # the slice's shape and at 512×512×1024
+    modes = {"gram_update": {"f32": slice_cases["gram_update"][0]},
+             "pairwise": {"f32": slice_cases["pairwise"][0]}}
+    strip16 = [strip_case(5, 50, 10, T_SLICE, True, dev, True, bf16=True),
+               strip_case(10, 512, 1024, T_SLICE, True, dev, True,
+                          bf16=True)]
+    modes["gram_update"]["bf16"] = strip16[0]
+    for epilogue in ("cosine", "l2"):
+        path_strip[epilogue + ",bf16"] = feature_strip_case(
+            5, 50, 158_570, epilogue, dev, timed=True, bf16=True)
+        strip16 += [feature_strip_case(5, 50, 10, epilogue, dev, bf16=True),
+                    feature_strip_case(10, 512, 1024, epilogue, dev,
+                                       timed=True, bf16=True),
+                    path_strip[epilogue + ",bf16"]]
+    pair16 = [pairwise_case(50, 10, T_SLICE, True, dev, True, bf16=True),
+              pairwise_case(512, 1024, T_SLICE, True, dev, True, bf16=True)]
+    modes["pairwise"]["bf16"] = pair16[0]
+    slice_cases["gram_update"] += strip16
+    slice_cases["pairwise"] += pair16
     wide = [cached_step_case(50, 5, 10, True, dev)]
     for normalize in (False, True):
         wide.append(strip_case(10, 512, 1024, T_SLICE, normalize, dev, True))
@@ -371,7 +463,7 @@ def kernel_phase(dev):
     emit({"phase": "kernels", "slice_shapes": slice_cases,
           "wider_shapes": wide,
           "seconds": time.perf_counter() - t0})
-    return slice_cases, path_strip
+    return slice_cases, path_strip, modes
 
 
 # ---------------------------------------------------------------------------
@@ -577,6 +669,122 @@ def from_scratch_phase(server, hist, dev):
 
 
 # ---------------------------------------------------------------------------
+# the slice with gram_in_bf16=True: bf16 Gram operands, f32 sums
+# ---------------------------------------------------------------------------
+
+BF16_KW = dict(SELECTOR_KW, gram_in_bf16=True)
+
+
+def _variants() -> dict:
+    return {name: {axis: dict(counts) for axis, counts in axes.items()}
+            for name, axes in kbuild.variant_launches.items()}
+
+
+def bf16_select_vs_plain(server) -> dict:
+    """One more clustered select on the bf16 run's final state, by the
+    kernels on the card and by the plain versions on the CPU with the
+    same noise: the CPU refreshes the staled rows with the plain bf16
+    step (its own dispatch would stay f32, as the reference's CPU
+    oracle), then selects on that cache.  The ids must be identical."""
+    t = ROUNDS
+    draws = server.draw_round(t)
+    ids, _ = server.selector.select(server.state, t, draws.select)
+    st = _cpu(server.state)
+    if int(st.stale_fill) > 0:
+        _, dist, stats = ref.cached_selection_step_ref(
+            st.delta_b, st.dist_cache, st.row_stats, st.stale_ids, T_SLICE,
+            LAM, normalize=True, gram_in_bf16=True)
+        st = st._replace(dist_cache=dist, row_stats=stats,
+                         stale_fill=torch.zeros_like(st.stale_fill))
+    plain = hics_functional(SPEC.num_clients, SPEC.num_select, ROUNDS,
+                            device="cpu", **SELECTOR_KW)
+    ids_p, _ = plain.select(st, t, _cpu(draws.select))
+    require("hics_bf16: clustered select differs from the plain bf16 "
+            "select", ids.tolist() == ids_p.tolist())
+    return {"card": ids.tolist(), "plain": ids_p.tolist()}
+
+
+def hics_bf16_phase(dev):
+    """The slice's spec with ``gram_in_bf16=True``, 14 rounds at full
+    width, the counts set to 0 just before and read just after: the
+    cache on the final Δb against the plain bf16 from-scratch build and
+    the pairwise kernel in bf16, one more clustered select against the
+    plain bf16 select on the CPU; then the same spec with
+    ``incremental=False`` (pairwise in bf16) with its counts of its own.
+    Returns both runs' launches by variant."""
+    spec = dataclasses.replace(SPEC, selector_kw=BF16_KW)
+    server, _ = build(spec, device=dev)
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    hist = server.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, variants = dict(kbuild.launches), _variants()
+    ops16 = variants["gram_update"]["operands"]
+    require("hics_bf16: the bf16 strip was not launched", ops16["bf16"] > 0)
+    require("hics_bf16: an f32 strip was launched", ops16["f32"] == 0)
+    require("hics_bf16: non-finite train loss",
+            bool(np.isfinite(hist["train_loss"]).all()))
+    require("hics_bf16: participants not distinct",
+            all(len(set(s)) == 5 for s in hist["selected"]))
+
+    st = server.state
+    _, dist_c, stats_c = ops.hics_selection_step_cached(
+        st.delta_b, st.dist_cache, st.row_stats, st.stale_ids, T_SLICE,
+        LAM, normalize=True, gram_in_bf16=True, device=dev)
+    _, dist = ops.hics_selection_step(st.delta_b, T_SLICE, LAM,
+                                      normalize=True, gram_in_bf16=True,
+                                      device=dev)
+    ent_p, dist_p = ref.selection_step_ref(st.delta_b, T_SLICE, LAM,
+                                           normalize=True, gram_in_bf16=True)
+    _, dist_f32 = ref.selection_step_ref(st.delta_b, T_SLICE, LAM,
+                                         normalize=True)
+    require("hics_bf16: cache not bit-symmetric",
+            bool(torch.equal(dist_c, dist_c.T)))
+    errs = {
+        "cache_vs_plain": check("hics_bf16: cache vs plain bf16", dist_c,
+                                dist_p, 1e-5, 1e-5),
+        "pairwise_vs_plain": check("hics_bf16: pairwise vs plain bf16",
+                                   dist, dist_p, 1e-5, 1e-5),
+        "cached_entropy_vs_plain": check(
+            "hics_bf16: cached Ĥ vs plain", stats_c[:, 1], ent_p, 5e-5),
+        "cached_norm_vs_plain": check(
+            "hics_bf16: cached norm vs plain", stats_c[:, 0],
+            torch.linalg.vector_norm(st.delta_b, dim=-1), 1e-5, 1e-5),
+        # printed, not held: how far bf16 operands move the distances
+        "bf16_cache_vs_plain_f32": float((dist_c - dist_f32).abs().max()),
+    }
+    select = bf16_select_vs_plain(server)
+    split = round_split(server)
+    del server
+
+    scratch = dataclasses.replace(
+        spec, selector_kw=dict(BF16_KW, incremental=False))
+    server2, _ = build(scratch, device=dev)
+    kbuild.reset_launches()
+    hist2 = server2.run()
+    torch.cuda.synchronize()
+    launches2, variants2 = dict(kbuild.launches), _variants()
+    require("hics_bf16: pairwise was not launched in bf16",
+            variants2["pairwise"]["operands"]["bf16"] > 0)
+    require("hics_bf16: pairwise was launched in f32",
+            variants2["pairwise"]["operands"]["f32"] == 0)
+    emit({"phase": "hics_bf16", "selector_kw": BF16_KW, "rounds": ROUNDS,
+          "seconds": seconds, "rounds_per_s": hist["rounds_per_s"],
+          "wall_s": hist["wall_s"], "round_split": split,
+          "launches": launches, "launches_by_variant": variants,
+          "selected": hist["selected"], "train_loss": hist["train_loss"],
+          "test_acc": hist["test_acc"], "max_abs_err": errs,
+          "select_vs_plain": select,
+          "from_scratch": {"launches": launches2,
+                           "launches_by_variant": variants2,
+                           "selected": hist2["selected"],
+                           "same_participants_as_incremental":
+                               hist2["selected"] == hist["selected"]}})
+    return variants, variants2
+
+
+# ---------------------------------------------------------------------------
 # the paper's five baselines: 14 rounds each of the slice's spec
 # ---------------------------------------------------------------------------
 
@@ -682,7 +890,7 @@ def baseline_run(label: str, selector: str, kw, dev) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(kbuild.launches)
-    epilogues = dict(kbuild.variant_launches["gram_update"])
+    epilogues = dict(kbuild.variant_launches["gram_update"]["epilogue"])
     require(f"baselines {label}: non-finite train loss",
             bool(np.isfinite(hist["train_loss"]).all()))
     require(f"baselines {label}: bad test accuracy",
@@ -1087,10 +1295,11 @@ def main() -> int:
                            if "registers" in ln or "spill" in ln]
                     for name, log in reports.items()}})
 
-    slice_cases, path_strip = kernel_phase(dev)
+    slice_cases, path_strip, modes = kernel_phase(dev)
     server, hist, launches = slice_phase(dev)
     scratch_launches = from_scratch_phase(server, hist, dev)
     del server
+    bf16_variants, bf16_scratch_variants = hics_bf16_phase(dev)
     feature_launches = baselines_phase(dev)
     serve_cases, entropy_launches = serve_kernels_phase(dev)
     res, serve_launches = serve_phase(dev)
@@ -1098,12 +1307,21 @@ def main() -> int:
     del res
 
     # the strip kernel's three epilogues, each counted on its own path:
-    # arccos in the HiCS slice, cosine in the cs run, l2 in the
-    # divfl-selected run
-    by_epilogue = {"arccos": launches["gram_update"], **feature_launches}
+    # arccos in the HiCS slice and its bf16 run, cosine in the cs run,
+    # l2 in the divfl-selected run; the Gram kernels' operand modes: f32
+    # on the f32 paths, bf16 in the two runs with gram_in_bf16=True
+    bf16_strip = bf16_variants["gram_update"]["operands"]["bf16"]
+    bf16_pairwise = bf16_scratch_variants["pairwise"]["operands"]["bf16"]
+    by_epilogue = {"arccos": launches["gram_update"] + bf16_strip,
+                   **feature_launches}
+    by_variant = {
+        "gram_update": {"f32": sum(by_epilogue.values()) - bf16_strip,
+                        "bf16": bf16_strip},
+        "pairwise": {"f32": scratch_launches["pairwise"],
+                     "bf16": bf16_pairwise}}
     counts = {"fused_stats": launches["fused_stats"],
               "gram_update": sum(by_epilogue.values()),
-              "pairwise": scratch_launches["pairwise"],
+              "pairwise": sum(by_variant["pairwise"].values()),
               "hetero_entropy": entropy_launches["hetero_entropy"],
               "decode_attention": serve_launches["decode_attention"]}
     cases = dict(slice_cases, **serve_cases)
@@ -1127,9 +1345,22 @@ def main() -> int:
     # C10; cosine and l2: the baselines' K5×N50×F158,570)
     strip = kernels[1]
     strip["launches_by_epilogue"] = by_epilogue
+    # (cosine and l2 run in bf16 on no path: cs and divfl take no
+    # gram_in_bf16, as in the reference)
     strip["epilogues"] = {
-        epi: dict(case, launches=by_epilogue[epi]) for epi, case in
+        epi: dict(case, launches=by_epilogue.get(epi)) for epi, case in
         dict(path_strip, arccos=timed_case["gram_update"]).items()}
+    # the Gram kernels per operand mode: launches on their paths and the
+    # timed case at the slice's shape
+    for kern in kernels[1:3]:
+        kern["launches_by_variant"] = by_variant[kern["name"]]
+        kern["operand_modes"] = {
+            mode: dict(case, launches=by_variant[kern["name"]][mode])
+            for mode, case in modes[kern["name"]].items()}
+        for mode, n in by_variant[kern["name"]].items():
+            require(f"{kern['name']}: no {mode} launch on its path", n > 0)
+    for epi, n in by_epilogue.items():
+        require(f"gram_update: no {epi} launch on its path", n > 0)
     emit({"kernels": kernels})
     if failures:
         for f in failures:

@@ -42,6 +42,7 @@ from repro_torch.core.selectors.functional import (FunctionalSelector,
                                                    SelectNoise,
                                                    SelectorState,
                                                    init_state, mark_seen,
+                                                   not_ported,
                                                    refresh_cache,
                                                    stale_append)
 from repro_torch.kernels import ops
@@ -178,14 +179,16 @@ def cs_functional(num_clients: int, num_select: int, total_rounds: int,
                   weights=None, feat_dim: int = 1,
                   proj_dim: Optional[int] = None, proj_seed: int = 0,
                   proj_signs: Optional[torch.Tensor] = None,
-                  incremental: bool = True, device="cuda",
-                  **_kw) -> FunctionalSelector:
+                  incremental: bool = True, stale_slots: int = 1,
+                  device="cuda", **_kw) -> FunctionalSelector:
     """Clustered Sampling [11]: ward clustering of the participants'
     full updates under the angular distance, one pick per cluster ∝
     p_k.  ``feat_dim`` is the raw flattened-update width the server
-    observes."""
+    observes.  ``stale_slots`` other than 1 is not ported (raises)."""
     n = int(num_clients)
     k = min(int(num_select), n)
+    if max(1, int(stale_slots)) != 1:
+        raise not_ported("stale_slots", stale_slots)
     project, feat_width = _make_projector(proj_dim, proj_seed, proj_signs)
     f_dim = max(1, feat_width(int(feat_dim)))
     incremental = bool(incremental)
@@ -267,8 +270,8 @@ def divfl_functional(num_clients: int, num_select: int, total_rounds: int,
                      proj_dim: Optional[int] = None, proj_seed: int = 0,
                      proj_signs: Optional[torch.Tensor] = None,
                      refresh: str = "all", incremental: bool = True,
-                     tie_quant: float = 1e-5, device="cuda",
-                     **_kw) -> FunctionalSelector:
+                     stale_slots: int = 1, tie_quant: float = 1e-5,
+                     device="cuda", **_kw) -> FunctionalSelector:
     """DivFL [2]: greedy facility location on pairwise L2 distances of
     flattened updates.
 
@@ -284,9 +287,12 @@ def divfl_functional(num_clients: int, num_select: int, total_rounds: int,
     break toward the smallest id.  In the first greedy step every gain
     is +inf and the reference's quotient inf/inf is NaN, which its
     argmax takes as the maximum; the port maps NaN to +inf, which
-    picks the same first index."""
+    picks the same first index.  ``stale_slots`` other than 1 is not
+    ported (raises)."""
     n = int(num_clients)
     k = min(int(num_select), n)
+    if max(1, int(stale_slots)) != 1:
+        raise not_ported("stale_slots", stale_slots)
     if refresh not in ("all", "selected"):
         raise ValueError(f"refresh must be 'all' or 'selected', got "
                          f"{refresh!r}")

@@ -112,6 +112,15 @@ def init_state(num_clients: int, weights=None, num_classes: int = 0,
     )
 
 
+def not_ported(name: str, value) -> NotImplementedError:
+    """The error for a value of a reference option that the port does
+    not run yet: raised, never swallowed, so that a run never differs
+    from the reference's without a word."""
+    return NotImplementedError(
+        f"{name}={value!r} is not ported yet (ROADMAP.md, queue 1 item 2); "
+        "the port runs only its default")
+
+
 def mark_seen(state: SelectorState, ids: torch.Tensor) -> SelectorState:
     """Fold ``ids`` into the coverage pool (idempotent)."""
     seen = state.seen.index_fill(0, ids.long(), True)

@@ -11,6 +11,12 @@ M = K groups on the Eq. 9 distance and the two-stage Eq. 10 sampler.
 * ``incremental=False`` rebuilds the matrix each clustered round
   (``hics_selection_step``, the pairwise kernel), O(N²·C).
 
+``gram_in_bf16`` rounds the two Gram operands to bf16 in both kernels
+(f32 sums; the stats stay f32).  On the CPU the plain versions ignore
+it and stay f32, as the reference's CPU oracle does.  The reference's
+other linkages, ``num_clusters`` other than K and ``stale_slots`` other
+than 1 are not ported: they raise.
+
 Both run on the state's device: the CUDA kernels on the card, the
 plain versions on the CPU.  The two branch tests read one scalar each
 from the device per round.  ``update`` reads ``obs.bias_updates``.
@@ -30,6 +36,7 @@ from repro_torch.core.selectors.functional import (FunctionalSelector,
                                                    SelectNoise,
                                                    SelectorState,
                                                    init_state, mark_seen,
+                                                   not_ported,
                                                    refresh_cache,
                                                    stale_append)
 from repro_torch.kernels import ops
@@ -38,11 +45,20 @@ from repro_torch.kernels import ops
 def hics_functional(num_clients: int, num_select: int, total_rounds: int,
                     weights=None, temperature: float = 0.0025,
                     lam: float = 10.0, gamma0: float = 4.0,
-                    normalize: bool = False, num_classes: int = 1,
-                    incremental: bool = True,
+                    num_clusters=None, linkage: str = "ward",
+                    normalize: bool = False, gram_in_bf16: bool = False,
+                    num_classes: int = 1, incremental: bool = True,
+                    stale_slots: int = 1,
                     device="cuda", **_kw) -> FunctionalSelector:
     n = int(num_clients)
     k = min(int(num_select), n)
+    if linkage != "ward":
+        raise not_ported("linkage", linkage)
+    if num_clusters and int(num_clusters) != k:
+        raise not_ported("num_clusters", num_clusters)
+    if max(1, int(stale_slots)) != 1:
+        raise not_ported("stale_slots", stale_slots)
+    gram_in_bf16 = bool(gram_in_bf16)
     temperature, lam, gamma0 = float(temperature), float(lam), float(gamma0)
     tr = float(total_rounds)
     num_classes = max(1, int(num_classes))
@@ -60,7 +76,7 @@ def hics_functional(num_clients: int, num_select: int, total_rounds: int,
                 ops.hics_selection_step_cached(
                     st.delta_b, st.dist_cache, st.row_stats, st.stale_ids,
                     temperature, lam=lam, normalize=normalize,
-                    device=device)[1:]))
+                    gram_in_bf16=gram_in_bf16, device=device)[1:]))
         if int(state.unseen_count) > 0:
             ids = coverage_sweep_device(noise.cover, state.seen, k)
             return ids.to(torch.int32), mark_seen(state, ids)
@@ -69,7 +85,7 @@ def hics_functional(num_clients: int, num_select: int, total_rounds: int,
         else:
             ent, dist = ops.hics_selection_step(
                 state.delta_b, temperature, lam=lam, normalize=normalize,
-                device=device)
+                gram_in_bf16=gram_in_bf16, device=device)
         # the cache scatter and the pairwise kernel keep the matrix
         # exactly symmetric, so clustering skips re-symmetrizing
         labels = agglomerate_device(dist, k, precomputed=True)

@@ -32,8 +32,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "fused_stats": ("fused_stats_launch", (_P, _P, _P, _P, _P, _I, _I, _P)),
     "gram_update": ("gram_strip_launch",
-                    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P)),
-    "pairwise": ("pairwise_launch", (_P, _P, _P, _I, _I, _F, _F, _P)),
+                    (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
+                     _I, _P)),
+    "pairwise": ("pairwise_launch", (_P, _P, _P, _I, _I, _F, _F, _I, _P)),
     "hetero_entropy": ("entropy_launch", (_P, _P, _I, _I, _F, _I, _P)),
     "decode_attention": ("decode_attention_launch",
                          (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
@@ -46,19 +47,25 @@ _loaded: dict = {}
 #: each wrapper adds one where it launches its kernel, and nowhere else
 launches = {name: 0 for name in SIGNATURES}
 
-#: the same launches split by the variant a source compiles in: the
-#: strip kernel's epilogues
-VARIANTS = {"gram_update": ("arccos", "cosine", "l2")}
-variant_launches = {name: {v: 0 for v in vs}
-                    for name, vs in VARIANTS.items()}
+#: the variants a source compiles in, by axis: the Gram kernels'
+#: operand modes (``gram_in_bf16``) and the strip kernel's epilogues
+OPERANDS = ("f32", "bf16")
+VARIANTS = {"gram_update": {"epilogue": ("arccos", "cosine", "l2"),
+                            "operands": OPERANDS},
+            "pairwise": {"operands": OPERANDS}}
+#: the same launches split by variant: {name: {axis: {variant: count}}}
+variant_launches = {name: {axis: {v: 0 for v in vs}
+                           for axis, vs in axes.items()}
+                    for name, axes in VARIANTS.items()}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-    for counts in variant_launches.values():
-        for v in counts:
-            counts[v] = 0
+    for axes in variant_launches.values():
+        for counts in axes.values():
+            for v in counts:
+                counts[v] = 0
 
 
 def _nvcc() -> str:
@@ -118,10 +125,11 @@ def entry(name: str):
     return _loaded[name]
 
 
-def launch(name: str, *args, variant: str | None = None) -> None:
+def launch(name: str, *args, **variant: str) -> None:
     """Call ``csrc/<name>.cu``'s entry on the current stream, raise on
-    a CUDA error code, and count the launch (under ``variant`` too,
-    for a source listed in :data:`VARIANTS`).  ``args`` are the entry's
+    a CUDA error code, and count the launch, and under each of its
+    ``variant`` axes for a source listed in :data:`VARIANTS` (e.g.
+    ``epilogue="l2", operands="bf16"``).  ``args`` are the entry's
     arguments without the trailing stream."""
     stream = torch.cuda.current_stream().cuda_stream
     err = entry(name)(*args, stream)
@@ -129,8 +137,8 @@ def launch(name: str, *args, variant: str | None = None) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error "
                            f"{err}")
     launches[name] += 1
-    if variant is not None:
-        variant_launches[name][variant] += 1
+    for axis, v in variant.items():
+        variant_launches[name][axis][v] += 1
 
 
 def require(t: torch.Tensor, what: str, shape: tuple,

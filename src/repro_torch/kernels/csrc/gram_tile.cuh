@@ -1,37 +1,81 @@
-// Shared tile loop and distance epilogues (Eq. 9, the angle alone, the
-// Euclidean distance) of the two Gram kernels (gram_update.cu,
-// pairwise.cu).
+// Shared pieces of the two Gram kernels (gram_update.cu, pairwise.cu):
+// the operand mode, the ranges of the F-slices, the tile loop of
+// pairwise and the distance epilogues (Eq. 9, the angle alone, the
+// Euclidean distance).
 //
-// One block of TN x TM threads computes a TM x TN tile of A·Bᵀ.  Row
-// and column tiles of the operands are staged through shared memory in
-// chunks of TC columns.  Each thread sums its chunk in one f32 register,
-// one fmaf per column in increasing c, and adds the chunk's sum into its
-// total with Kahan compensation: a two-level sum, as the TPU kernel's
-// per-block partial products are, whose error stays near that of a
-// 32-term sum at any C (a single running sum over C = 158,570 columns
-// was ~175x less accurate than cuBLAS's).  The order is fixed, with no
-// split-K and no atomics, and fmaf's two factors commute exactly, so
-// <a_u, a_v> and <a_v, a_u> are bit-equal, and so are the distances
-// built from them: the K x K block of the scattered cache and the
-// pairwise matrix are exactly symmetric.  For C <= TC the total is the
-// chunk's sum itself.
+// Sum order.  Every dot product over C is summed in an order that
+// depends on the column index alone, never on which operand is the row
+// and which the column: fmaf products in a fixed sequence of columns
+// within a chunk, the chunks' sums added with Kahan compensation (a
+// two-level sum, as the TPU kernel's per-block partial products are,
+// whose error stays near that of a short sum at any C: a single
+// running sum over C = 158,570 columns was ~175x less accurate than
+// cuBLAS's), and, where C is split across blocks, the slices' partial
+// sums merged in increasing slice order, again with Kahan compensation.
+// fmaf's two factors commute exactly, so <a_u, a_v> and <a_v, a_u> are
+// bit-equal and so are the distances built from them: the K x K block
+// of the scattered cache and the pairwise matrix are exactly symmetric.
+// No atomics enter a sum.
+//
+// Operand mode.  With BF16 every operand value is rounded to bf16
+// (round to nearest even, as the reference's astype(jnp.bfloat16)) as
+// it is loaded from the f32 buffer and widened back to f32; the sums
+// stay f32.  A product of two bf16 values is exact in f32, so the
+// kernels and their plain versions differ only in the order of the
+// sums.  The norms and Ĥ in the stats are the f32 rows' own.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace gram {
 
-constexpr int TM = 16;  // output rows per block (threadIdx.y)
-constexpr int TN = 16;  // output columns per block (threadIdx.x)
-constexpr int TC = 32;  // columns of C staged per chunk
+constexpr int TM = 16;  // pairwise: output rows per block (threadIdx.y)
+constexpr int TN = 16;  // pairwise: output columns per block (threadIdx.x)
+constexpr int TC = 32;  // columns of C per chunk; a slice is whole chunks
 
 // Eq. 9 clip bounds, the f32 values of the reference's python floats.
 constexpr float COS_LO = static_cast<float>(-1.0 + 1e-7);
 constexpr float COS_HI = static_cast<float>(1.0 - 1e-7);
 
-// <a[row0 + threadIdx.y], b[col0 + threadIdx.x]> over c in [0, c).
-// a is (ra, c) and b is (rb, c), both row-major f32.  Out-of-range rows
-// read zeros; their results are discarded by the caller.
+// The value a Gram product reads: v itself, or v rounded to bf16.
+template <bool BF16>
+__device__ __forceinline__ float operand(float v) {
+  if (BF16) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
+// Columns [*begin, *end) of slice s of `splits`: chunks
+// [nch*s/splits, nch*(s+1)/splits) of the nch = ceil(c/TC) chunks, the
+// last one cut at c.  The slices cover [0, c) without overlap; with
+// splits <= nch none is empty.  kernels/gram_update.py: slice_ranges
+// computes the same.
+__host__ __device__ inline void slice_range(int c, int splits, int s,
+                                            int* begin, int* end) {
+  const long long nch = (c + TC - 1) / TC;
+  const long long lo = nch * s / splits, hi = nch * (s + 1) / splits;
+  *begin = (int)(lo * TC);
+  *end = (int)(hi * TC < c ? hi * TC : c);
+}
+
+// Kahan step: (acc, comp) += v.  Each step rounded on its own: nothing
+// here may be reassociated or contracted.
+__device__ __forceinline__ void kahan_add(float& acc, float& comp, float v) {
+  const float y = __fsub_rn(v, comp);
+  const float t = __fadd_rn(acc, y);
+  comp = __fsub_rn(__fsub_rn(t, acc), y);
+  acc = t;
+}
+
+// Pairwise's tile loop: one block of TN x TM threads computes a TM x TN
+// tile of A·Bᵀ, <a[row0 + threadIdx.y], b[col0 + threadIdx.x]> over c in
+// [0, c).  Row and column tiles are staged through shared memory one
+// chunk of TC columns at a time; each thread sums a chunk in one f32
+// register, one fmaf per column in increasing c, and adds the chunk's
+// sum into its total with Kahan compensation.  a is (ra, c) and b is
+// (rb, c), both row-major f32.  Out-of-range rows read zeros; their
+// results are discarded by the caller.
+template <bool BF16>
 __device__ inline float tile_dot(const float* __restrict__ a, int ra,
                                  const float* __restrict__ b, int rb,
                                  int c, int row0, int col0) {
@@ -44,12 +88,14 @@ __device__ inline float tile_dot(const float* __restrict__ a, int ra,
     for (int e = tid; e < TM * TC; e += TM * TN) {
       const int r = e / TC, cc = e % TC;
       const int gr = row0 + r, gc = c0 + cc;
-      as[r][cc] = (gr < ra && gc < c) ? a[(size_t)gr * c + gc] : 0.0f;
+      as[r][cc] = (gr < ra && gc < c) ? operand<BF16>(a[(size_t)gr * c + gc])
+                                      : 0.0f;
     }
     for (int e = tid; e < TN * TC; e += TM * TN) {
       const int r = e / TC, cc = e % TC;
       const int gr = col0 + r, gc = c0 + cc;
-      bs[r][cc] = (gr < rb && gc < c) ? b[(size_t)gr * c + gc] : 0.0f;
+      bs[r][cc] = (gr < rb && gc < c) ? operand<BF16>(b[(size_t)gr * c + gc])
+                                      : 0.0f;
     }
     __syncthreads();
     const int lim = min(TC, c - c0);
@@ -57,11 +103,7 @@ __device__ inline float tile_dot(const float* __restrict__ a, int ra,
     for (int kk = 0; kk < lim; ++kk) {
       part = fmaf(as[threadIdx.y][kk], bs[threadIdx.x][kk], part);
     }
-    // each step rounded on its own: nothing here may be reassociated
-    const float y = __fsub_rn(part, comp);
-    const float t = __fadd_rn(acc, y);
-    comp = __fsub_rn(__fsub_rn(t, acc), y);
-    acc = t;
+    kahan_add(acc, comp, part);
     __syncthreads();
   }
   return acc;

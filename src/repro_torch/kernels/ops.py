@@ -12,7 +12,10 @@
 Each takes ``device`` (default ``"cuda"``) and the tensors must lie on
 it.  On ``"cpu"`` the plain PyTorch versions run; on ``"cuda"`` the
 hand-written kernels run or the call raises.  Asking for the card on a
-machine without one raises; nothing falls back.
+machine without one raises; nothing falls back.  ``gram_in_bf16`` (the
+Gram functions) rounds the two Gram operands to bf16 with f32 sums on
+the card; on the CPU it is ignored and the plain versions stay f32, as
+the reference's CPU oracle.
 """
 from __future__ import annotations
 
@@ -38,18 +41,20 @@ def fused_row_stats(updates: torch.Tensor, temperature: float, *,
 
 
 def hics_selection_step(updates: torch.Tensor, temperature: float,
-                        lam: float = 10.0, normalize: bool = False, *,
-                        device="cuda"):
+                        lam: float = 10.0, normalize: bool = False,
+                        gram_in_bf16: bool = False, *, device="cuda"):
     """(N, C) Δb -> (Ĥ (N,), Eq. 9 distance (N, N)), from scratch."""
     _on(device, updates)
     return pairwise.hics_selection_step(updates, temperature, lam=lam,
-                                        normalize=normalize)
+                                        normalize=normalize,
+                                        gram_in_bf16=gram_in_bf16)
 
 
 def hics_selection_step_cached(updates: torch.Tensor, dist: torch.Tensor,
                                stats: torch.Tensor, ids: torch.Tensor,
                                temperature: float, lam: float = 10.0,
-                               normalize: bool = False, *,
+                               normalize: bool = False,
+                               gram_in_bf16: bool = False, *,
                                device="cuda"):
     """(N, C) Δb, cached (dist (N, N), stats (N, 2) = [norm, Ĥ]), (K,)
     refreshed ids -> (Ĥ (N,), dist, stats).  Only the rows and columns
@@ -57,35 +62,41 @@ def hics_selection_step_cached(updates: torch.Tensor, dist: torch.Tensor,
     _on(device, updates, dist, stats, ids)
     return gram_update.cached_selection_step(
         updates, dist, stats, ids, temperature, lam=lam,
-        normalize=normalize)
+        normalize=normalize, gram_in_bf16=gram_in_bf16)
 
 
 def gram_row_update(updates: torch.Tensor, stats: torch.Tensor,
                     ids: torch.Tensor, lam: float = 10.0,
-                    epilogue: str = "arccos", *, device="cuda"):
+                    gram_in_bf16: bool = False, epilogue: str = "arccos", *,
+                    device="cuda"):
     """(N, C), (N, 2) current [norm, Ĥ], (K,) ids -> the (K, N) strip
     of the ``epilogue`` distance ("arccos", "cosine" or "l2")."""
     _on(device, updates, stats, ids)
     return gram_update.gram_row_update(updates, stats, ids, lam=lam,
-                                       epilogue=epilogue)
+                                       epilogue=epilogue,
+                                       gram_in_bf16=gram_in_bf16)
 
 
 def cached_feature_step(feats: torch.Tensor, dist: torch.Tensor,
                         stats: torch.Tensor, ids: torch.Tensor,
-                        metric: str = "cosine", *, device="cuda"):
+                        metric: str = "cosine", gram_in_bf16: bool = False,
+                        *, device="cuda"):
     """(N, F) features, cached (dist (N, N), stats (N, 2) = [norm, 0]),
     (K,) refreshed ids -> (dist, stats), the rows and columns of
     ``ids`` recomputed by the ``metric`` ("cosine" or "l2") strip."""
     _on(device, feats, dist, stats, ids)
     return gram_update.cached_feature_step(feats, dist, stats, ids,
-                                           metric=metric)
+                                           metric=metric,
+                                           gram_in_bf16=gram_in_bf16)
 
 
 def pairwise_distances(updates: torch.Tensor, temperature: float,
-                       lam: float = 10.0, *, device="cuda"):
+                       lam: float = 10.0, gram_in_bf16: bool = False, *,
+                       device="cuda"):
     """Full Eq. 9 matrix: fused stats, then the pairwise kernel."""
     _on(device, updates)
-    return pairwise.hics_selection_step(updates, temperature, lam=lam)[1]
+    return pairwise.hics_selection_step(updates, temperature, lam=lam,
+                                        gram_in_bf16=gram_in_bf16)[1]
 
 
 def estimate_entropies(updates: torch.Tensor, temperature: float, *,

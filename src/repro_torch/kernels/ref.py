@@ -8,6 +8,14 @@ lies on the CPU, and ``chip_smoke.py`` holds each CUDA kernel against
 them on the card.  The kernels divide after the dot product instead,
 so a kernel and its plain version agree to f32 tolerance, not bit for
 bit.
+
+``gram_in_bf16`` (the Gram functions) rounds the two operands of the
+dot products to bf16, round to nearest even as the reference's
+``astype(jnp.bfloat16)``, and sums in f32; norms and Ĥ stay those of
+the f32 rows.  A product of two bf16 values is exact in f32, so the
+kernels and these versions differ only in the order of the sums.  The
+kernel wrappers' CPU dispatch never sets it: there the option is
+ignored, as the reference's CPU oracle ignores it.
 """
 from __future__ import annotations
 
@@ -50,12 +58,19 @@ def row_entropy(rows: torch.Tensor, temperature: float,
     return entropy_ref(rows, temperature)
 
 
+def gram_operand(x: torch.Tensor, gram_in_bf16: bool) -> torch.Tensor:
+    """The f32 values a Gram product reads: ``x`` itself, or rounded to
+    bf16 and widened back."""
+    return x.to(torch.bfloat16).float() if gram_in_bf16 else x
+
+
 def pairwise_distance_ref(updates: torch.Tensor, entropies: torch.Tensor,
-                          lam: float, eps: float = 1e-8) -> torch.Tensor:
+                          lam: float, eps: float = 1e-8,
+                          gram_in_bf16: bool = False) -> torch.Tensor:
     """Eq. 9 distance matrix.  updates (N, C), entropies (N,) -> (N, N)."""
     x = updates.float()
     norms = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
-    unit = x / torch.clamp(norms, min=eps)
+    unit = gram_operand(x, gram_in_bf16) / torch.clamp(norms, min=eps)
     cos = torch.clamp(unit @ unit.T, COS_LO, COS_HI)
     eye = torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
     ang = torch.arccos(cos) * (1.0 - eye)
@@ -64,16 +79,18 @@ def pairwise_distance_ref(updates: torch.Tensor, entropies: torch.Tensor,
 
 
 def selection_step_ref(updates: torch.Tensor, temperature: float,
-                       lam: float, normalize: bool = False):
+                       lam: float, normalize: bool = False,
+                       gram_in_bf16: bool = False):
     """(N, C) -> (Ĥ (N,), Eq. 9 D (N, N)), from scratch."""
     x = updates.float()
     h = row_entropy(x, temperature, normalize)
-    return h, pairwise_distance_ref(x, h, lam)
+    return h, pairwise_distance_ref(x, h, lam, gram_in_bf16=gram_in_bf16)
 
 
 def distance_strip_ref(updates: torch.Tensor, stats: torch.Tensor,
                        ids: torch.Tensor, lam: float, eps: float = 1e-8,
-                       epilogue: str = "arccos") -> torch.Tensor:
+                       epilogue: str = "arccos",
+                       gram_in_bf16: bool = False) -> torch.Tensor:
     """(N, C), (N, 2) current [norm, Ĥ], (K,) ids -> (K, N) distance
     strip; the true diagonal is zeroed.  ``epilogue``:
 
@@ -82,7 +99,7 @@ def distance_strip_ref(updates: torch.Tensor, stats: torch.Tensor,
       l2     — √(|a|² + |b|² − 2⟨a, b⟩) from the cached norms (DivFL)
 
     Unit rows use the cached norms."""
-    x = updates.float()
+    x = gram_operand(updates.float(), gram_in_bf16)
     if epilogue == "l2":
         nr, nc = stats[ids, 0], stats[:, 0]
         dot = x[ids] @ x.T
@@ -115,7 +132,8 @@ def scatter_strip(dist: torch.Tensor, strip: torch.Tensor,
 def cached_selection_step_ref(updates: torch.Tensor, dist: torch.Tensor,
                               stats: torch.Tensor, ids: torch.Tensor,
                               temperature: float, lam: float,
-                              normalize: bool = False, eps: float = 1e-8):
+                              normalize: bool = False, eps: float = 1e-8,
+                              gram_in_bf16: bool = False):
     """Incremental step: refresh the rows/cols of ``ids`` in the cached
     ``dist`` (N, N) and ``stats`` (N, 2) = [norm, Ĥ].  Returns
     (Ĥ (N,), dist, stats).  K = 0 returns the cache unchanged."""
@@ -127,7 +145,8 @@ def cached_selection_step_ref(updates: torch.Tensor, dist: torch.Tensor,
     n_rows = torch.linalg.vector_norm(rows, dim=-1)
     stats = stats.clone()
     stats[ids] = torch.stack([n_rows, h_rows], dim=-1)
-    strip = distance_strip_ref(x, stats, ids, lam, eps=eps)
+    strip = distance_strip_ref(x, stats, ids, lam, eps=eps,
+                               gram_in_bf16=gram_in_bf16)
     return stats[:, 1], scatter_strip(dist, strip, ids), stats
 
 
@@ -148,7 +167,8 @@ def scatter_strip_symmetric(dist: torch.Tensor, strip: torch.Tensor,
 
 def cached_feature_step_ref(feats: torch.Tensor, dist: torch.Tensor,
                             stats: torch.Tensor, ids: torch.Tensor,
-                            metric: str = "cosine", eps: float = 1e-8):
+                            metric: str = "cosine", eps: float = 1e-8,
+                            gram_in_bf16: bool = False):
     """Incremental full-update distance step (CS, DivFL): refresh the
     rows and columns of ``ids`` in the cached ``dist`` (N, N) and
     ``stats`` (N, 2) = [L2 norm, 0] from the features (N, F) with the
@@ -160,7 +180,8 @@ def cached_feature_step_ref(feats: torch.Tensor, dist: torch.Tensor,
     n_rows = torch.linalg.vector_norm(x[ids], dim=-1)
     stats = stats.clone()
     stats[ids] = torch.stack([n_rows, torch.zeros_like(n_rows)], dim=-1)
-    strip = distance_strip_ref(x, stats, ids, 0.0, eps=eps, epilogue=metric)
+    strip = distance_strip_ref(x, stats, ids, 0.0, eps=eps, epilogue=metric,
+                               gram_in_bf16=gram_in_bf16)
     return scatter_strip_symmetric(dist, strip, ids), stats
 
 

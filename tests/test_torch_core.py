@@ -5,7 +5,9 @@ select/update sequence of the functional HiCS selector.
 Inputs come from seeded numpy; the samplers' Gumbel noise is replayed
 from the keys the reference draws with.  Ĥ is held to 5e-5; cluster
 labels and sampled ids must be identical.  Each test loops over its
-cases (``torch_parity.each``).
+cases (``torch_parity.each``).  Also: the reference options the port
+does not run raise, and a 6-round HiCS run with ``gram_in_bf16`` on the
+CPU picks JAX's participants.
 """
 import numpy as np
 import pytest
@@ -24,8 +26,16 @@ from repro_torch.core import (agglomerate_device, anneal_device,
                               estimate_entropy, head_bias_updates_stacked,
                               head_num_classes, hics_functional,
                               hierarchical_sample_device, label_entropy)
+from repro.data import SyntheticSpec as JaxSyntheticSpec
+from repro.fed import ExperimentSpec as JaxExperimentSpec
+from repro.fed import LocalSpec as JaxLocalSpec
+from repro.fed import build as jax_build
 from repro_torch.core import Observations as TObservations
-from torch_parity import each, select_noise
+from repro_torch.core import make_functional
+from repro_torch.data import SyntheticSpec
+from repro_torch.fed import ExperimentSpec, LocalSpec, build
+from repro_torch.models import params_from_jax
+from torch_parity import JaxKeyChain, each, select_noise, to_np
 
 def test_estimate_entropy_matches_jax():
     each(_entropy_case, [False, True], [0.63, 0.05])
@@ -203,3 +213,68 @@ def test_hics_functional_20_rounds_identical(incremental):
                                    np.asarray(jstate.dist_cache),
                                    atol=1e-5, rtol=1e-5)
         assert torch.equal(tstate.dist_cache, tstate.dist_cache.T)
+
+
+def _raises_unported(name, bad, fine):
+    """Each of ``bad`` raises (it used to vanish into ``**_kw``, and the
+    run then differed from the reference's); each of ``fine``, the
+    defaults and names no selector reads, still builds."""
+    kw = dict(num_clients=8, num_select=3, total_rounds=4, device="cpu")
+    for opts in bad:
+        with pytest.raises(NotImplementedError, match="queue 1"):
+            make_functional(name, **kw, **opts)
+    for opts in fine:
+        make_functional(name, **kw, **opts).init()
+
+
+def test_hics_unported_options_raise():
+    _raises_unported(
+        "hics", [{"linkage": "average"}, {"linkage": "single"},
+                 {"linkage": "complete"}, {"num_clusters": 2},
+                 {"stale_slots": 2}, {"stale_slots": 2, "incremental": False}],
+        [{"linkage": "ward", "num_clusters": 3, "stale_slots": 1,
+          "gram_in_bf16": True}, {"num_clusters": None, "stale_slots": 0},
+         {"no_such_option": 5}])
+
+
+def test_cs_unported_options_raise():
+    _raises_unported("cs", [{"stale_slots": 2}],
+                     [{"stale_slots": 1, "gram_in_bf16": True,
+                       "linkage": "average"}])
+
+
+def test_divfl_unported_options_raise():
+    _raises_unported("divfl", [{"stale_slots": 3},
+                               {"stale_slots": 2, "refresh": "selected"}],
+                     [{"stale_slots": 1, "refresh": "selected"},
+                      {"no_such_option": 5}])
+
+
+def test_hics_bf16_run_picks_jax_participants():
+    """A 6-round HiCS run with ``selector_kw={"gram_in_bf16": True}``
+    through both packages' builders on the CPU: the option is accepted
+    and dispatched as in JAX, whose CPU oracle ignores it (f32 on both
+    sides), so the participants are JAX's in every round and Ĥ within
+    1e-4 relative."""
+    sel_kw = dict(temperature=0.63, gamma0=4.0, normalize=True,
+                  incremental=True, gram_in_bf16=True)
+    common = dict(arch="paper-cnn", num_clients=12, num_select=3, rounds=6,
+                  alphas=(0.001, 0.002, 0.005, 0.01, 0.5), selector="hics",
+                  selector_kw=sel_kw, samples_train=600, samples_test=100,
+                  eval_every=3, seed=0)
+    jserver, _ = jax_build(JaxExperimentSpec(
+        data=JaxSyntheticSpec(dim=196, noise=0.5, proto_scale=1.2),
+        local=JaxLocalSpec(algo="fedavg", optimizer="sgd", lr=0.05,
+                           epochs=2, batch_size=32), **common))
+    tserver, _ = build(ExperimentSpec(
+        data=SyntheticSpec(dim=196, noise=0.5, proto_scale=1.2),
+        local=LocalSpec(lr=0.05, epochs=2, batch_size=32), **common),
+        device="cpu")
+    tserver.params = params_from_jax(to_np(jserver.params), "cpu")
+    jhist = jserver.run()
+    thist = tserver.run(draws=JaxKeyChain(0, 12, 3, 3, 2,
+                                          tserver.x.shape[1]))
+    assert thist["selected"] == jhist["selected"]
+    assert len(thist["selected"]) == 6
+    np.testing.assert_allclose(np.asarray(thist["bias_entropy"]),
+                               np.asarray(jhist["bias_entropy"]), rtol=1e-4)

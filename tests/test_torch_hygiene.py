@@ -1,7 +1,7 @@
 """Rules of the PyTorch port that no parity test would catch.
 
-* The port and ``chip_smoke.py`` import neither JAX nor anything of
-  the JAX package ``repro``.
+* The port, ``chip_smoke.py`` and ``tools/strip_profile.py`` import
+  neither JAX nor anything of the JAX package ``repro``.
 * The kernel modules import without ``triton`` and without ``nvcc``.
 * Entry points default to the card (the ops, the selector factories,
   the experiment builder, model init and the serve entry point): called
@@ -22,7 +22,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tools" / "strip_profile.py"]
 
 
 def _imported_modules(path: Path):
@@ -193,6 +194,13 @@ def test_kernel_wrappers_refuse_cpu_tensors_at_launch():
     with pytest.raises(ValueError, match="CUDA"):
         pairwise(x, torch.ones(4, 2), 10.0)
     with pytest.raises(ValueError, match="CUDA"):
+        pairwise(x, torch.ones(4, 2), 10.0, gram_in_bf16=True)
+    for epilogue in ("arccos", "cosine", "l2"):
+        with pytest.raises(ValueError, match="CUDA"):
+            gram_strip(x[:2], x, torch.ones(2, 2), torch.ones(4, 2),
+                       torch.zeros(2, dtype=torch.int32), 0.0,
+                       epilogue=epilogue, gram_in_bf16=True, splits=1)
+    with pytest.raises(ValueError, match="CUDA"):
         entropy_rows(x, 0.0025)
     with pytest.raises(ValueError, match="CUDA"):
         entropy_rows(x.bfloat16(), 0.0025)
@@ -205,3 +213,64 @@ def test_kernel_wrappers_refuse_cpu_tensors_at_launch():
                                 kv.bfloat16(),
                                 torch.ones(1, dtype=torch.int32), 0.35)
     assert not build._loaded and not any(build.launches.values())
+
+
+def test_gram_in_bf16_entry_points_raise_without_cuda(no_cuda):
+    """The option does not move an entry point off the card."""
+    from repro_torch.core import make_functional
+    from repro_torch.kernels import ops
+    x = torch.zeros(4, 10)
+    stats, ids = torch.ones(4, 2), torch.arange(2)
+    calls = [
+        lambda: ops.hics_selection_step(x, 0.63, gram_in_bf16=True),
+        lambda: ops.pairwise_distances(x, 0.63, gram_in_bf16=True),
+        lambda: ops.hics_selection_step_cached(
+            x, torch.zeros(4, 4), stats, ids, 0.63, gram_in_bf16=True),
+        lambda: ops.gram_row_update(x, stats, ids, gram_in_bf16=True),
+        lambda: ops.cached_feature_step(x, torch.zeros(4, 4), stats, ids,
+                                        "l2", gram_in_bf16=True),
+        lambda: make_functional("hics", num_clients=4, num_select=2,
+                                total_rounds=3, gram_in_bf16=True),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_launch_counts_by_variant(monkeypatch):
+    """``build.launch`` counts a launch once per source and once under
+    each of its variant axes (the Gram kernels' operand modes, the
+    strip's epilogues); a CUDA error code raises and counts nothing."""
+    from repro_torch.kernels import build
+
+    class Stream:
+        cuda_stream = 0
+
+    codes = {"gram_update": 0, "pairwise": 0}
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
+    monkeypatch.setattr(build, "entry",
+                        lambda name: lambda *args: codes[name])
+    assert build.VARIANTS["gram_update"]["operands"] == ("f32", "bf16")
+    assert build.VARIANTS["pairwise"] == {"operands": ("f32", "bf16")}
+    build.reset_launches()
+    try:
+        build.launch("gram_update", epilogue="l2", operands="bf16")
+        build.launch("gram_update", epilogue="arccos", operands="f32")
+        build.launch("pairwise", operands="bf16")
+        assert build.launches["gram_update"] == 2
+        assert build.launches["pairwise"] == 1
+        v = build.variant_launches
+        assert v["gram_update"]["epilogue"] == {"arccos": 1, "cosine": 0,
+                                                "l2": 1}
+        assert v["gram_update"]["operands"] == {"f32": 1, "bf16": 1}
+        assert v["pairwise"]["operands"] == {"f32": 0, "bf16": 1}
+        codes["pairwise"] = 1
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            build.launch("pairwise", operands="f32")
+        assert v["pairwise"]["operands"] == {"f32": 0, "bf16": 1}
+        build.reset_launches()
+        assert not any(build.launches.values())
+        assert not any(c for axes in v.values() for counts in axes.values()
+                       for c in counts.values())
+    finally:
+        build.reset_launches()

@@ -26,6 +26,7 @@ from repro.kernels.gram_update import (cached_feature_step_pallas,
                                        gram_row_update_pallas)
 from repro.kernels.hetero_entropy import entropy_pallas
 from repro.kernels.pairwise import hics_selection_step_pallas
+from repro_torch.kernels import gram_update as gu
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_stats import fused_stats
 from repro_torch.kernels.gram_update import (cached_feature_step,
@@ -430,3 +431,171 @@ def test_decode_attention_plain_ragged_lengths():
     _close(got, want, 1e-4)
     first = np.broadcast_to(v[0, 0][:, None, :], (kv, h // kv, dh))
     _close(got[0].reshape(kv, h // kv, dh), first, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# gram_in_bf16: the plain versions with bf16 Gram operands against the
+# Pallas kernels with gram_in_bf16=True in interpret mode, at the f32
+# tolerances of the strip and step tests above.  These hold because the
+# two sides read the same bf16-rounded operands and a product of two
+# bf16 values is exact in f32: only the order of the f32 sums (and the
+# plain versions' division before the dot product) differs, as in f32.
+# Each is also held within 2e-2 of the f32 oracle, as the reference's
+# own bf16 test (tests/test_fused_stats.py:113-123).
+# ---------------------------------------------------------------------------
+
+BF16_VS_F32 = 2e-2
+
+
+def test_strip_bf16_plain_vs_pallas():
+    each(_strip_bf16_case, SHAPES, ["arccos", "cosine", "l2"])
+
+
+def _strip_bf16_case(shape, epilogue):
+    n, c = shape
+    x = _x(n, c, seed=5) * 2.5
+    _, _, stats = _cache(x, 0.63, False)
+    if epilogue != "arccos":
+        stats[:, 1] = torch.tensor(np.random.default_rng(n).uniform(
+            0.0, 2.3, n).astype(np.float32))
+    ids = np.array([n - 1, 0, n // 2, 0][: min(4, n)], np.int32)  # dup 0
+    lam = LAM if epilogue == "arccos" else 0.0
+    tx, tids = torch.tensor(x), torch.tensor(ids, dtype=torch.int64)
+    got = ref.distance_strip_ref(tx, stats, tids, lam, epilogue=epilogue,
+                                 gram_in_bf16=True)
+    args = (jnp.asarray(x), jnp.asarray(stats.numpy()), jnp.asarray(ids))
+    pallas = gram_row_update_pallas(*args, lam=lam, epilogue=epilogue,
+                                    gram_in_bf16=True, interpret=True)
+    if epilogue == "arccos":
+        _close_dist(got, pallas, 1e-5)
+    else:
+        _close(got, pallas, 1e-4, rtol=1e-4)
+    f32 = jref.distance_strip_ref(*args, lam, epilogue=epilogue)
+    _close(got, f32, BF16_VS_F32)
+    assert all(float(got[u, i]) == 0.0 for u, i in enumerate(ids))
+    # the operands really were rounded: bf16 differs from f32 somewhere
+    assert not torch.equal(got, ref.distance_strip_ref(
+        tx, stats, tids, lam, epilogue=epilogue))
+
+
+def test_selection_steps_bf16_plain_vs_pallas():
+    """The from-scratch and cached HiCS steps and the full-update step,
+    plain bf16 against Pallas bf16 in interpret mode."""
+    each(_steps_bf16_case, SHAPES, [(0.63, True), (0.0025, False)])
+
+
+def _steps_bf16_case(shape, t_norm):
+    (n, c), (temperature, normalize) = shape, t_norm
+    h_tol, d_tol = _tol(temperature)
+    x = _x(n, c, seed=8)
+    tx = torch.tensor(x)
+    ent, dist = ref.selection_step_ref(tx, temperature, LAM,
+                                       normalize=normalize,
+                                       gram_in_bf16=True)
+    p_ent, p_dist = hics_selection_step_pallas(
+        jnp.asarray(x), temperature, lam=LAM, normalize=normalize,
+        gram_in_bf16=True, interpret=True)
+    _close(ent, p_ent, h_tol)
+    _close_dist(dist, p_dist, d_tol)
+    _close(dist, jref.selection_step_ref(jnp.asarray(x), temperature, LAM,
+                                         normalize=normalize)[1],
+           BF16_VS_F32)
+
+    x_old = _x(n, c, seed=9)
+    _, dist0, stats0 = _cache(x_old, temperature, normalize)
+    ids = np.array([1, n - 1, n // 3, 1][: min(4, n)], np.int32)
+    x_new = x_old.copy()
+    x_new[ids] = x[ids]
+    ent, dist, stats = ref.cached_selection_step_ref(
+        torch.tensor(x_new), dist0, stats0,
+        torch.tensor(ids, dtype=torch.int64), temperature, LAM,
+        normalize=normalize, gram_in_bf16=True)
+    args = (jnp.asarray(x_new), jnp.asarray(dist0.numpy()),
+            jnp.asarray(stats0.numpy()), jnp.asarray(ids), temperature)
+    p_ent, p_dist, p_stats = cached_selection_step_pallas(
+        *args, lam=LAM, normalize=normalize, gram_in_bf16=True,
+        interpret=True)
+    _close(ent, p_ent, h_tol)
+    _close(stats[:, 0], np.asarray(p_stats)[:, 0], 1e-5)
+    _close_dist(dist, p_dist, d_tol)
+    _close(dist, jref.cached_selection_step_ref(
+        *args, LAM, normalize=normalize)[1], BF16_VS_F32)
+    d = dist.numpy()
+    assert np.array_equal(d, d.T)
+
+    for metric in ("cosine", "l2"):
+        feats = x_new * 2.5
+        fd, fs = ref.cached_feature_step_ref(
+            torch.tensor(feats), torch.zeros(n, n), torch.zeros(n, 2),
+            torch.arange(n), metric, gram_in_bf16=True)
+        jd, js = cached_feature_step_pallas(
+            jnp.asarray(feats), jnp.zeros((n, n)), jnp.zeros((n, 2)),
+            jnp.arange(n, dtype=jnp.int32), metric=metric,
+            gram_in_bf16=True, interpret=True)
+        _close(fd, jd, 1e-4, rtol=1e-4)
+        _close(fs, js, 1e-5, rtol=1e-5)
+        _close(fd, jref.cached_feature_step_ref(
+            jnp.asarray(feats), jnp.zeros((n, n)), jnp.zeros((n, 2)),
+            jnp.arange(n, dtype=jnp.int32), metric=metric)[0], BF16_VS_F32)
+        assert torch.equal(fd, fd.T)
+
+
+def test_ops_cpu_ignore_gram_in_bf16():
+    """On the CPU the option is ignored, as the reference's CPU oracle
+    ignores it: every Gram op equals its f32 plain version."""
+    x = torch.tensor(_x(12, 40, seed=2))
+    ids = torch.tensor([3, 0, 11])
+    _, dist0, stats0 = _cache(_x(12, 40, seed=3), 0.63, True)
+    dist = ops.pairwise_distances(x, 0.63, LAM, gram_in_bf16=True,
+                                  device="cpu")
+    assert torch.equal(dist, ref.selection_step_ref(x, 0.63, LAM)[1])
+    got = ops.hics_selection_step(x, 0.63, LAM, True, gram_in_bf16=True,
+                                  device="cpu")
+    want = ref.selection_step_ref(x, 0.63, LAM, normalize=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got = ops.hics_selection_step_cached(x, dist0, stats0, ids, 0.63, LAM,
+                                         True, gram_in_bf16=True,
+                                         device="cpu")
+    want = ref.cached_selection_step_ref(x, dist0, stats0, ids, 0.63, LAM,
+                                         normalize=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for epi in ("arccos", "cosine", "l2"):
+        got = ops.gram_row_update(x, stats0, ids, LAM, True, epilogue=epi,
+                                  device="cpu")
+        assert torch.equal(got, ref.distance_strip_ref(x, stats0, ids, LAM,
+                                                       epilogue=epi))
+    for metric in ("cosine", "l2"):
+        got = ops.cached_feature_step(x, dist0, stats0, ids, metric,
+                                      gram_in_bf16=True, device="cpu")
+        want = ref.cached_feature_step_ref(x, dist0, stats0, ids, metric)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_strip_splits_and_slice_ranges():
+    """S fills the card at the baselines' shape (two to four blocks an
+    SM of 132), is 1 at the HiCS slice's C = 10, and the slices are
+    whole 32-column chunks covering [0, C) without overlap."""
+    tiles = gu.strip_splits(5, 50, 158_570) * 4          # 4 N tiles, 1 K
+    assert 2 * 132 <= tiles <= 4 * 132
+    assert gu.strip_splits(5, 50, 10) == 1
+    assert gu.strip_splits(10, 512, 1024) >= 1
+    for k, n, c in [(5, 50, 10), (5, 50, 158_570), (10, 512, 1024),
+                    (4, 512, 1024), (1, 3, 31), (8, 16, 33), (3, 7, 0),
+                    (5, 50, 255), (5, 50, 256), (2, 2, 100_000)]:
+        s = gu.strip_splits(k, n, c)
+        assert s >= 1
+        ranges = gu.slice_ranges(c, s)
+        assert len(ranges) == s
+        assert ranges[0][0] == 0 and ranges[-1][1] == c
+        for (b0, e0), (b1, _) in zip(ranges, ranges[1:]):
+            assert e0 == b1            # contiguous, no overlap
+        for b, e in ranges:
+            assert b % gu.CHUNK == 0 and b <= e
+            assert e == c or e % gu.CHUNK == 0
+            assert c == 0 or e > b     # no empty slice
+        if -(-c // gu.CHUNK) < 2 * gu.MIN_SLICE_CHUNKS:
+            assert s == 1              # a few chunks: one launch
+    # more SMs, more slices; a slice keeps at least MIN_SLICE_CHUNKS
+    assert gu.strip_splits(5, 50, 158_570, sms=264) > gu.strip_splits(
+        5, 50, 158_570)
+    assert gu.strip_splits(5, 50, 8 * 32 * 3) == 3
