@@ -78,7 +78,7 @@ from repro_torch.kernels.gram_update import (  # noqa: E402
 from repro_torch.kernels.pairwise import pairwise  # noqa: E402
 from repro_torch.kernels.hetero_entropy import entropy_rows  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention_kernel)
+    decode_attention_kernel, kernel_splits)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 
@@ -169,9 +169,13 @@ def time_ms_rotating(fns, iters: int = 48) -> float:
 
 
 def device_ms(fns, iters: int = 24) -> float:
-    """Mean device time of a call cycling through ``fns``: the sum of
-    the CUDA kernels' own spans in ``torch.profiler`` over ``iters``
-    calls, without the host's time between them."""
+    """Mean device time of a call cycling through ``fns``, each call
+    launching each of its kernels once: per kernel, the mean of its own
+    spans in ``torch.profiler`` over ``iters`` calls, summed over the
+    kernels, without the host's time between them.  The mean is over
+    the spans the profiler recorded, not over ``iters``: the profiler
+    can drop records (it once reported under half of decode_32k's
+    byte bound when divided by the calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for fn in fns:
@@ -182,8 +186,11 @@ def device_ms(fns, iters: int = 24) -> float:
         for i in range(iters):
             fns[i % len(fns)]()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / iters / 1e3
+    spans: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return sum(sum(t) / len(t) for t in spans.values()) / 1e3
 
 
 def bound(nbytes: float, flops: float):
@@ -978,12 +985,16 @@ def entropy_case(n, c, dtype, dev, scale=0.02, timed=False):
 
 def decode_case(b, h, kv, dh, s, kv_dtype, dev, lengths=None, timed=False):
     """decode_attention on q (b, h, dh) f32 and a (b, s, kv, dh) cache
-    against its plain version: 5e-5 absolute and relative for f32 and
-    bf16 K/V alike (both sides widen the same bf16 bits exactly and
-    compute in f32, so only the order of the sums differs); ragged
-    lengths 1e-4 absolute, and a length-1 row equal to v[:, 0] of its
-    KV head."""
-    gen = torch.Generator(device=dev).manual_seed(b * s + h)
+    against its plain versions: the split one at the kernel's own split
+    plan (``ref.decode_attention_split_ref``) and the unsplit one (the
+    reference for the result; rows of length 0 left out, where it is
+    NaN and the kernel must return exactly 0).  5e-5 absolute and
+    relative for f32 and bf16 K/V alike (both sides widen the same bf16
+    bits exactly and compute in f32, so only the order of the sums
+    differs); ragged lengths 1e-4 absolute, and a length-1 row equal to
+    v[:, 0] of its KV head.  Two calls on the same input must agree bit
+    for bit (the splits merge in a fixed order)."""
+    gen = torch.Generator(device=dev).manual_seed(b * s + h + dh)
     q = torch.randn((b, h, dh), generator=gen, device=dev)
     k = torch.randn((b, s, kv, dh), generator=gen, device=dev,
                     dtype=kv_dtype)
@@ -992,26 +1003,41 @@ def decode_case(b, h, kv, dh, s, kv_dtype, dev, lengths=None, timed=False):
     lens_list = lengths or [s] * b
     lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
     scale = dh ** -0.5
+    splits = kernel_splits(q, k)
     got = decode_attention_kernel(q, k, v, lens, scale)
+    again = decode_attention_kernel(q, k, v, lens, scale)
     want = ref.decode_attention_ref(q, k, v, lens)
+    want_split = ref.decode_attention_split_ref(q, k, v, lens, splits)
     dt = "bf16" if kv_dtype == torch.bfloat16 else "f32"
     tag = f"decode_attention(B{b},H{h},KV{kv},dh{dh},S{s},{dt}" + (
         f",lengths={lengths})" if lengths else ")")
-    if lengths:
-        err = check(tag, got, want, 1e-4)
-        g = h // kv
-        for i, n in enumerate(lengths):
-            if n == 1:
-                first = v[i, 0].float()[:, None, :].expand(kv, g, dh)
-                err = max(err, check(tag + f".row{i}=v0",
-                                     got[i].reshape(kv, g, dh), first,
-                                     1e-4))
-    else:
-        err = check(tag, got, want, 5e-5, 5e-5)
-    out = {"case": tag, "max_abs_err": err}
+    tol = (1e-4, 0.0) if lengths else (5e-5, 5e-5)
+    live = lens > 0
+    err = max(check(tag, got[live], want[live], *tol),
+              check(tag + ".split", got, want_split, *tol))
+    g = h // kv
+    for i, n in enumerate(lens_list):
+        if n == 1:
+            first = v[i, 0].float()[:, None, :].expand(kv, g, dh)
+            err = max(err, check(tag + f".row{i}=v0",
+                                 got[i].reshape(kv, g, dh), first, 1e-4))
+        if n == 0:
+            require(f"{tag}.row{i}: length 0 is not 0", not got[i].any())
+    bit_equal = torch.equal(got, again)
+    require(f"{tag}: two calls on the same input differ", bit_equal)
+    out = {"case": tag, "splits": splits, "max_abs_err": err,
+           "bit_equal": bit_equal}
     if timed:
-        out["ms"] = time_ms(lambda: decode_attention_kernel(q, k, v, lens,
-                                                            scale), 20)
+        call = lambda k=k, v=v: decode_attention_kernel(q, k, v, lens, scale)
+        out["ms"] = time_ms(call, 20)
+        # the kernels' own spans; a cache under 60 MB cycled through
+        # copies past the 50 MB L2, as the serve loop finds it
+        copies = [(k, v)] + [(k.clone(), v.clone()) for _ in range(
+            int(np.ceil(60e6 / (2 * k.nbytes))) if 2 * k.nbytes < 60e6
+            else 0)]
+        out["device_ms"] = device_ms([lambda kc=kc, vc=vc: call(kc, vc)
+                                      for kc, vc in copies])
+        del copies
         out["plain_ms"] = time_ms(
             lambda: ref.decode_attention_ref(q, k, v, lens), 5)
         valid = sum(min(n, s) for n in lens_list)
@@ -1021,27 +1047,46 @@ def decode_case(b, h, kv, dh, s, kv_dtype, dev, lengths=None, timed=False):
         out["bound_ms"], out["bound_by"] = bound(
             8 * b * h * dh + 4 * b + 2 * valid * kv * dh * k.element_size(),
             valid * h * (4 * dh + 5))
-        out.update(library_case(q, k, v, lens, want, kv_dtype))
+        out["bound_share"] = out["bound_ms"] / out["device_ms"]
+        # at decode_32k in f32 SDPA's math backend would expand K/V to
+        # all H heads (68 GB): only a fused backend is timed there
+        out.update(library_case(q, k, v, lens, want, kv_dtype,
+                                fused_only=k.nbytes > 2e9
+                                and kv_dtype == torch.float32))
     return out
 
 
-def library_case(q, k, v, lens, want, dtype) -> dict:
+def library_case(q, k, v, lens, want, dtype, fused_only=False) -> dict:
     """One ``scaled_dot_product_attention(..., enable_gqa=True)`` call
     with a length mask, all operands in ``dtype``, the cache already in
     its (B, KV, S, dh) layout: the library yardstick, used nowhere in
-    the port."""
+    the port.  ``fused_only`` leaves the math backend out; if no fused
+    backend takes the call, ``library_ms`` is null with the reason."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     s = k.shape[1]
     q4 = q.to(dtype)[:, :, None, :]
     kt = k.to(dtype).transpose(1, 2).contiguous()
     vt = v.to(dtype).transpose(1, 2).contiguous()
     mask = (torch.arange(s, device=q.device)[None, :]
             < lens[:, None])[:, None, None, :]
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
 
-    def call():
+    def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
             q4, kt, vt, attn_mask=mask, enable_gqa=True)
 
-    err = float((call()[:, :, 0].float() - want).abs().max())
+    def call():
+        if not fused_only:
+            return sdpa()
+        with sdpa_kernel(fused):
+            return sdpa()
+
+    try:
+        err = float((call()[:, :, 0].float() - want).abs().max())
+    except RuntimeError as e:
+        return {"library_ms": None,
+                "library_note": f"no fused SDPA backend: {str(e)[:160]}"}
     return {"library_ms": time_ms(call, 20), "library_max_abs_err": err}
 
 
@@ -1058,14 +1103,26 @@ def serve_kernels_phase(dev):
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
     decode = [decode_case(4, h, kv, dh, 512, dt, dev, timed=True)
               for dt in (torch.float32, torch.bfloat16)]
-    decode.append(decode_case(3, h, kv, dh, 512, torch.bfloat16, dev,
-                              lengths=[1, 512, 259]))
-    decode.append(decode_case(3, h, kv, dh, 512, torch.float32, dev,
-                              lengths=[1, 512, 259]))
+    for dt in (torch.bfloat16, torch.float32):
+        decode.append(decode_case(3, h, kv, dh, 512, dt, dev,
+                                  lengths=[1, 512, 259]))
+        # whole splits past the length (P = 8 of 64 positions), a
+        # length-0 row, and one split (P = 1: the block writes the output)
+        decode.append(decode_case(4, h, kv, dh, 512, dt, dev,
+                                  lengths=[1, 64, 65, 512]))
+        decode.append(decode_case(3, h, kv, dh, 512, dt, dev,
+                                  lengths=[0, 300, 512]))
+        decode.append(decode_case(3, h, kv, dh, 96, dt, dev,
+                                  lengths=[1, 50, 96]))
+        # other group sizes and head widths the kernel compiles for
+        for g in (2, 8):
+            for width in (64, 128):
+                decode.append(decode_case(4, 2 * g, 2, width, 512, dt, dev))
     d32k = SHAPES["decode_32k"]
-    decode.append(decode_case(d32k.global_batch, h, kv, dh, d32k.seq_len,
-                              torch.bfloat16, dev, timed=True))
-    torch.cuda.empty_cache()
+    for dt in (torch.float32, torch.bfloat16):   # the bf16 layer last
+        decode.append(decode_case(d32k.global_batch, h, kv, dh,
+                                  d32k.seq_len, dt, dev, timed=True))
+        torch.cuda.empty_cache()
 
     x = torch.randn((64, 151_936), device=dev) * 0.02
     kbuild.reset_launches()
@@ -1340,6 +1397,9 @@ def main() -> int:
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": timed.get("library_ms")})
+    # the decode kernel's device time and split plan at its timed case
+    kernels[4].update({key: timed_case["decode_attention"][key]
+                       for key in ("splits", "device_ms", "bound_share")})
     # the strip kernel per epilogue: its launches on its own path and
     # its timed case at that path's shape (arccos: the slice's K5×N50×
     # C10; cosine and l2: the baselines' K5×N50×F158,570)

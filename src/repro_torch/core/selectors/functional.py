@@ -112,12 +112,24 @@ def init_state(num_clients: int, weights=None, num_classes: int = 0,
     )
 
 
-def not_ported(name: str, value) -> NotImplementedError:
+#: ROADMAP.md's queue 1 items, by title, that port the options the
+#: port still refuses
+SELECTOR_LAYER = "queue 1: the rest of the selector layer"
+LOCAL_UPDATES = ("queue 1: the other local updates, momentum, and the "
+                 "estimator's theory half")
+LM_FINE_TUNING = "queue 1: federated LM fine-tuning"
+ROUND_DRIVER = "queue 1: the scanned round driver"
+TELEMETRY = "queue 1: telemetry"
+
+
+def not_ported(name: str, value,
+               item: str = SELECTOR_LAYER) -> NotImplementedError:
     """The error for a value of a reference option that the port does
     not run yet: raised, never swallowed, so that a run never differs
-    from the reference's without a word."""
+    from the reference's without a word.  ``item`` is the title of the
+    ROADMAP.md item that ports it."""
     return NotImplementedError(
-        f"{name}={value!r} is not ported yet (ROADMAP.md, queue 1 item 2); "
+        f"{name}={value!r} is not ported yet (ROADMAP.md, {item}); "
         "the port runs only its default")
 
 

@@ -1,7 +1,10 @@
 """Client-side LocalUpdate (Algorithm 1 line 3): fedavg with sgd, and
 the server's all-clients loss poll.
 
-The port of the reference's ``fed/client.py`` for fedavg with sgd.  Every
+The port of the reference's ``fed/client.py`` for fedavg with sgd.
+:class:`LocalSpec` takes the reference's fields and names; the other
+algorithms and optimizers raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them.  Every
 client's data is padded to a common (S_max, d) with a sample mask, and
 the whole cohort of K clients trains at once: ``torch.func.vmap`` of
 ``torch.func.grad_and_value`` over the K stacked param dicts.  The
@@ -16,16 +19,40 @@ from typing import Callable
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro_torch.core.selectors.functional import (LM_FINE_TUNING,
+                                                   LOCAL_UPDATES, not_ported)
 from repro_torch.optim import apply_updates, sgd, tree_map
+
+ALGOS = ("fedavg", "fedprox", "feddyn", "moon")
+OPTIMIZERS = ("sgd", "momentum", "adam")
 
 
 @dataclasses.dataclass(frozen=True)
 class LocalSpec:
-    """fedavg with sgd; the other algorithms and optimizers of the
-    reference are still to port."""
+    """The reference's ``LocalSpec``: an unknown ``algo`` or
+    ``optimizer`` raises ``ValueError``, as there; a known one the port
+    does not run yet (every algo but fedavg, every optimizer but sgd)
+    raises ``NotImplementedError``.  ``mu`` and ``moon_tau`` are read
+    only by those algorithms."""
+    algo: str = "fedavg"
+    optimizer: str = "sgd"
     lr: float = 0.001
     epochs: int = 2              # R in the paper
     batch_size: int = 64         # B in the paper
+    mu: float = 0.1              # fedprox/feddyn/moon regularization weight
+    moon_tau: float = 0.5        # Moon contrastive temperature
+
+    def __post_init__(self):
+        if self.algo not in ALGOS:
+            raise ValueError(f"algo must be one of {ALGOS}")
+        if self.optimizer not in OPTIMIZERS:
+            raise ValueError(f"optimizer must be one of {OPTIMIZERS}")
+        if self.algo != "fedavg":
+            raise not_ported("algo", self.algo, LOCAL_UPDATES)
+        if self.optimizer == "momentum":
+            raise not_ported("optimizer", self.optimizer, LOCAL_UPDATES)
+        if self.optimizer == "adam":
+            raise not_ported("optimizer", self.optimizer, LM_FINE_TUNING)
 
 
 def masked_ce(logits: torch.Tensor, labels: torch.Tensor,

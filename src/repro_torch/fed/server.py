@@ -37,6 +37,8 @@ from repro_torch.core.hetero import (head_bias_updates_stacked,
                                      head_num_classes)
 from repro_torch.core.selectors import (Observations, SelectNoise,
                                         make_functional)
+from repro_torch.core.selectors.functional import (ROUND_DRIVER, TELEMETRY,
+                                                   not_ported)
 from repro_torch.fed.client import (LocalSpec, make_eval_fn,
                                     make_local_update, make_loss_poll)
 from repro_torch.optim import tree_map
@@ -53,6 +55,16 @@ class FedConfig:
     seed: int = 0
     lr_decay_every: int = 10     # paper: lr halves every 10 rounds
     lr_decay: float = 0.5
+    #: the reference's scanned round loop and telemetry groups: only
+    #: their defaults (the host loop, no telemetry) are ported
+    jit_rounds: bool = False
+    telemetry: tuple = ()
+
+    def __post_init__(self):
+        if self.jit_rounds:
+            raise not_ported("jit_rounds", self.jit_rounds, ROUND_DRIVER)
+        if self.telemetry:
+            raise not_ported("telemetry", self.telemetry, TELEMETRY)
 
 
 class RoundDraws(NamedTuple):

@@ -38,6 +38,8 @@ class ExperimentSpec:
     data: SyntheticSpec = dataclasses.field(default_factory=SyntheticSpec)
     eval_every: int = 5
     seed: int = 0
+    jit_rounds: bool = False       # refused: see fed.server.FedConfig
+    telemetry: Sequence[str] = ()  # refused: see fed.server.FedConfig
 
 
 def build(spec: ExperimentSpec, device="cuda"):
@@ -50,6 +52,12 @@ def build(spec: ExperimentSpec, device="cuda"):
     """
     dev = resolve_device(device)
     set_precision()
+    fed_cfg = FedConfig(
+        num_clients=spec.num_clients, num_select=spec.num_select,
+        rounds=spec.rounds, selector=spec.selector,
+        selector_kw=spec.selector_kw, local=spec.local,
+        eval_every=spec.eval_every, seed=spec.seed,
+        jit_rounds=spec.jit_rounds, telemetry=tuple(spec.telemetry))
     rng = np.random.default_rng(spec.seed)
     cfg = get_config(spec.arch)
     data_spec = dataclasses.replace(spec.data, num_classes=cfg.vocab_size)
@@ -62,12 +70,7 @@ def build(spec: ExperimentSpec, device="cuda"):
     ys = [ytr[p] for p in parts]
     X, Y, M = pad_and_stack(xs, ys)
     label_dists = client_label_distributions(ys, data_spec.num_classes)
-    init, apply = make_classifier(cfg, input_dim=data_spec.dim)
-    fed_cfg = FedConfig(
-        num_clients=spec.num_clients, num_select=spec.num_select,
-        rounds=spec.rounds, selector=spec.selector,
-        selector_kw=spec.selector_kw, local=spec.local,
-        eval_every=spec.eval_every, seed=spec.seed)
+    init, apply, _ = make_classifier(cfg, input_dim=data_spec.dim)
     server = FederatedServer(init, apply, fed_cfg, X, Y, M, test=test,
                              device=dev)
     info = {"label_dists": label_dists, "client_alpha": client_alpha,

@@ -14,6 +14,7 @@ the wrapper can raise on a launch that was refused.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -37,8 +38,8 @@ SIGNATURES = {
     "pairwise": ("pairwise_launch", (_P, _P, _P, _I, _I, _F, _F, _I, _P)),
     "hetero_entropy": ("entropy_launch", (_P, _P, _I, _I, _F, _I, _P)),
     "decode_attention": ("decode_attention_launch",
-                         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                          _P)),
+                         (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _F, _I, _P)),
 }
 
 _loaded: dict = {}
@@ -139,6 +140,12 @@ def launch(name: str, *args, **variant: str) -> None:
     launches[name] += 1
     for axis, v in variant.items():
         variant_launches[name][axis][v] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def require(t: torch.Tensor, what: str, shape: tuple,

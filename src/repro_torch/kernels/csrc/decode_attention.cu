@@ -2,224 +2,495 @@
 // bf16 K/V, f32 out: o = softmax(q·Kᵀ·scale, masked at length) · V.
 //
 // Replaces src/repro/kernels/decode_attention.py:_decode_kernel
-// (decode_attention_pallas).  As there, one block takes one
-// (batch, KV head) and its G = H / KV query heads together, so each K/V
-// position is read from device memory once per group, and the softmax
-// is online: per tile of BS positions,
+// (decode_attention_pallas).  As there, the G = H / KV query heads of
+// one KV head ride together, so each valid K/V byte is read from device
+// memory once, and the softmax is online in f32: per run of positions,
 //     m' = max(m, max logits);  l' = l·e^{m−m'} + Σ p;
-//     acc' = acc·e^{m−m'} + p·V_tile,   p = e^{logits−m'}.
-// The TPU kernel's sequential grid axis over S becomes a loop inside
-// the block.  Each tile of K and V is staged through shared memory as
-// f32 (16-byte loads, bf16 widened exactly); the G×BS logits, the
-// (G, dh) accumulator and the (m, l) stats stay in shared memory.
-// Positions at or past length are masked explicitly (p = 0), and tiles
-// wholly past length are not read: they would add p = 0 and rescale by
-// e^0 = 1.  The output is acc / max(l, 1e-30), 0 for length 0.
+//     acc' = acc·e^{m−m'} + p·V,   p = e^{logits−m'}  (0 past length).
+// The output is acc / max(l, 1e-30), 0 for length 0.
 //
-// The function reads the valid part of K and V once, so on the H100 it
-// is bound by memory bytes.  This first version does not overlap a
-// tile's loads with the previous tile's arithmetic, has one block per
-// (batch, KV head) and no split over S, and reads each staged K row
-// once per query head.
+// Bound: bytes.  The function reads the valid K and V once (decode_32k:
+// 4.29 GB of bf16, 1.28 ms at 3.35 TB/s) and does 4·dh + 5 f32
+// operations per valid position and query head (0.52 ms at 67 TFLOP/s).
+// So the kernel is near its bound only if its loads never wait for its
+// arithmetic and its arithmetic issues few instructions a byte.  The
+// design, against that:
+//
+// * S is split across blocks (flash-decoding).  The grid is
+//   (B·KV) × P; block (bh, p) takes the contiguous tiles
+//   [T·p/P, T·(p+1)/P) of the T = ceil(S / BS) tiles of BS = 32
+//   positions, clipped at its row's length, so a split wholly past the
+//   length reads nothing.  P comes from kernels/decode_attention.py:
+//   decode_splits (the resident blocks of the card in near-whole waves).
+//   With P = 1 the block writes the output; otherwise it writes its
+//   partial (acc[G, dh], m[G], l[G]) to an f32 workspace, and a second
+//   launch, one block per (batch, KV head), merges the P partials in
+//   increasing split order: M = max m_p, l = Σ l_p·e^{m_p−M},
+//   acc = Σ acc_p·e^{m_p−M}.  A second launch rather than a last-block
+//   merge inside the kernel: the partials are a few KB a block, the
+//   launch on the same stream orders the merge after every split with
+//   no atomics, fences or counters that would have to be kept per
+//   stream, and the merge order, hence the output, is the same bit for
+//   bit in every call.  An empty split's partial (m = −1e30, l = 0,
+//   acc = 0) merges with weight e^{−1e30−M} = 0, or 1 with l = 0 when
+//   every split is empty (length 0), so nothing is NaN.
+// * Each of the block's 4 warps streams its own 8 positions of every
+//   tile through a ring of STAGES = 3 tiles in shared memory, in the
+//   cache's stored type (bf16 stays 2 bytes), with 16-byte
+//   cp.async.cg copies and commit/wait groups: while a warp computes
+//   tile t, its copies of tiles t+1 and t+2 are in flight.  A warp
+//   reads only rows it copied itself, so the loop needs no block
+//   barrier, only __syncwarp; rows at or past the length are
+//   zero-filled without a read (cp.async's src-size 0).  Each warp
+//   keeps its own online (m, l, acc) and the 4 are merged in warp
+//   order through shared memory once, at the end.
+// * q of the block's G heads lives in registers, E = dh / 32 values a
+//   lane (G padded to GP, a power of two, with zero heads), so each
+//   staged K and V value is read from shared memory once by one lane
+//   and feeds all G heads: per K row, G·E FMAs into G partial dot
+//   products; per V row, G·E FMAs into the G accumulators.  The G·RS
+//   partial dot products of RS = 32 / GP rows are summed across the
+//   warp by one reduce-scatter butterfly (31 shuffles and adds for 32
+//   sums, not 5 of each a sum, and no select: each lane lays its
+//   products out XOR its own logit index), which leaves lane l the
+//   logit of head l / RS, row l % RS.  The max and sum of the softmax
+//   are then a few shuffles within each head's lanes: every lane
+//   works, none waits.  The probabilities go to the warp through PW·GP
+//   floats of shared memory, read back as broadcast vectors, and the
+//   accumulators are rescaled only when a head's max moved.
+// * bf16 is widened in registers, a shift or a mask a value, as the
+//   values leave shared memory.
+// * The arithmetic is f32 FMA on the CUDA cores, no tensor-core
+//   product: bf16 or TF32 operands would round the f32 q, and the kernel
+//   is held to 5e-5 of its plain version.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BS = 64;           // cache positions per tile
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int PW = 8;                 // positions of a tile per warp
+constexpr int BS = WARPS * PW;        // cache positions per tile
+constexpr int STAGES = 3;             // tiles in each warp's ring
+constexpr int MERGE_THREADS = 128;
 constexpr float NEG_INF = -1e30f;
+constexpr unsigned FULL = 0xffffffffu;
 
-// 16 bytes of K or V -> f32 in shared memory (16-byte aligned dst).
-__device__ inline void stage(const float* src, float* dst) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+// cp.async of 16 bytes, of which `bytes` (16 or 0) are read and the
+// rest zero-filled.
+__device__ __forceinline__ void copy16(unsigned dst, const void* src,
+                                       unsigned bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ inline void stage(const uint16_t* src, float* dst) {
-  const uint4 w = *reinterpret_cast<const uint4*>(src);
+// E consecutive values of a staged row -> f32 registers.
+__device__ __forceinline__ void load_row(const float* p, float (&r)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  r[0] = t.x;
+  r[1] = t.y;
+  r[2] = t.z;
+  r[3] = t.w;
+}
+__device__ __forceinline__ void load_row(const float* p, float (&r)[2]) {
+  const float2 t = *reinterpret_cast<const float2*>(p);
+  r[0] = t.x;
+  r[1] = t.y;
+}
+// bf16 -> f32 is exact: the bf16 bits are the top half of the f32.
+__device__ __forceinline__ void load_row(const uint16_t* p, float (&r)[4]) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
   const unsigned hi = 0xffff0000u;
-  *reinterpret_cast<float4*>(dst) =
-      make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & hi),
-                  __uint_as_float(w.y << 16), __uint_as_float(w.y & hi));
-  *reinterpret_cast<float4*>(dst + 4) =
-      make_float4(__uint_as_float(w.z << 16), __uint_as_float(w.z & hi),
-                  __uint_as_float(w.w << 16), __uint_as_float(w.w & hi));
+  r[0] = __uint_as_float(w.x << 16);
+  r[1] = __uint_as_float(w.x & hi);
+  r[2] = __uint_as_float(w.y << 16);
+  r[3] = __uint_as_float(w.y & hi);
+}
+__device__ __forceinline__ void load_row(const uint16_t* p, float (&r)[2]) {
+  const unsigned w = *reinterpret_cast<const unsigned*>(p);
+  r[0] = __uint_as_float(w << 16);
+  r[1] = __uint_as_float(w & 0xffff0000u);
 }
 
-__device__ inline float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// The GP probabilities of one position, contiguous in shared memory.
+template <int GP>
+__device__ __forceinline__ void load_probs(const float* p, float (&r)[GP]) {
+  if constexpr (GP == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    r[0] = t.x;
+    r[1] = t.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < GP; i += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + i);
+      r[i] = t.x;
+      r[i + 1] = t.y;
+      r[i + 2] = t.z;
+      r[i + 3] = t.w;
+    }
+  }
 }
 
-__device__ inline float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// Sum the N values of every lane across the warp, without a select:
+// lane l holds, in its register ρ, the partial sum of logical value
+// ρ XOR (l >> (5 − log2 N)) (the caller lays its products out so).  So
+// at each level a lane keeps its lower half and adds the partner's
+// upper half, which holds the same logical values.  After log2(N)
+// levels v[0] of lane l is the warp's sum of value l >> (5 − log2 N);
+// with N < 32 the remaining levels add the lanes that share it.
+template <int HALF, int MASK, int N>
+__device__ __forceinline__ void scatter_level(float (&v)[N]) {
+#pragma unroll
+  for (int j = 0; j < HALF; ++j)
+    v[j] += __shfl_xor_sync(FULL, v[j + HALF], MASK);
+  if constexpr (HALF > 1) scatter_level<HALF / 2, MASK / 2>(v);
 }
 
-// Shared memory, in floats: q (g·dh), K tile (BS·(dh+4), rows padded so
-// that neighbouring rows start in other banks), V tile (BS·dh), p
-// (g·BS), acc (g·dh), then m, l and the rescale factor (g each).
-inline size_t smem_bytes(int g, int dh) {
-  return sizeof(float) * (static_cast<size_t>(g) * dh * 2 +
-                          static_cast<size_t>(BS) * (dh + 4) +
-                          static_cast<size_t>(BS) * dh +
-                          static_cast<size_t>(g) * BS + 3 * g);
+template <int N>
+__device__ __forceinline__ void reduce_scatter(float (&v)[N]) {
+  scatter_level<N / 2, 16>(v);
+#pragma unroll
+  for (int mask = 16 / N; mask > 0; mask >>= 1)
+    v[0] += __shfl_xor_sync(FULL, v[0], mask);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ lengths,
-              float* __restrict__ out, int s_len, int kv, int g, int dh,
-              float scale) {
+// One warp's BS / WARPS = PW positions of a tile, K rows then V rows,
+// into one stage of its ring; rows at or past len are zero-filled.
+template <typename T, int DH>
+__device__ __forceinline__ void load_tile(T* stage, const T* kb, const T* vb,
+                                          int pos0, int len,
+                                          size_t pos_stride, int lane) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CH = DH / VEC;        // 16-byte chunks a row
+  constexpr int PER_LANE = 2 * PW * CH / 32;
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(stage));
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i) {
+    const int c = lane + 32 * i;
+    const int row = c / CH, col = c % CH;
+    const int pos = pos0 + row % PW;
+    const bool ok = pos < len;
+    const T* src = (row < PW ? kb : vb) +
+                   (ok ? static_cast<size_t>(pos) * pos_stride + col * VEC : 0);
+    copy16(base + static_cast<unsigned>((row * DH + col * VEC) * sizeof(T)),
+           src, ok ? 16u : 0u);
+  }
+}
+
+template <typename T, int GP, int E>
+struct Layout {
+  static constexpr int DH = 32 * E;
+  static constexpr int STAGE = 2 * PW * DH;   // elements of T
+  static constexpr size_t RING = sizeof(T) * WARPS * STAGES * STAGE;
+  static constexpr size_t PROBS = sizeof(float) * WARPS * PW * GP;
+  // the warps' (acc, m, l), in the ring once every warp is done with it
+  static constexpr size_t MERGE = sizeof(float) * WARPS * GP * (DH + 2);
+  static_assert(MERGE <= RING, "merge area must fit in the ring");
+  static constexpr size_t SMEM = RING + PROBS;
+};
+
+// Block (bh, split) of the (B·KV) × P grid, bh = b·KV + h: the partial
+// of split `split` of (batch b, KV head h), or its output when P = 1.
+template <typename T, int GP, int E>
+__global__ void __launch_bounds__(THREADS, 3)
+decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ lengths,
+                    float* __restrict__ out, float* __restrict__ ws,
+                    int s_len, int kv, int g, int splits, float scale) {
+  using L = Layout<T, GP, E>;
+  constexpr int DH = L::DH;
+  constexpr int RS = PW < 32 / GP ? PW : 32 / GP;  // rows a logit step
+  constexpr int NS = PW / RS;                      // logit steps a tile
+  constexpr int N = GP * RS;                       // partial sums a step
+  constexpr int DUP = 32 / N;                      // lanes sharing a logit
+  constexpr int GL = 32 / GP;                      // lanes of one head
+
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  const int ldk = dh + 4;
-  float* ks = qs + g * dh;
-  float* vs = ks + BS * ldk;
-  float* ps = vs + BS * dh;
-  float* acc = ps + g * BS;
-  float* ms = acc + g * dh;
-  float* ls = ms + g;
-  float* al = ls + g;
+  T* ring = reinterpret_cast<T*>(smem4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  T* my_ring = ring + warp * STAGES * L::STAGE;
+  float* probs = reinterpret_cast<float*>(
+                     reinterpret_cast<char*>(smem4) + L::RING) +
+                 warp * PW * GP;
 
-  const int h = blockIdx.x % kv, b = blockIdx.x / kv, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int gd = g * dh, dh4 = dh / 4;
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  const int nv = dh / VEC;
-
-  // the g query heads of this KV head are contiguous in q (B, H, dh)
-  const float* qb = q + (static_cast<size_t>(b) * kv + h) * gd;
-  for (int i = tid; i < gd; i += THREADS) {
-    qs[i] = qb[i];
-    acc[i] = 0.0f;
-  }
-  for (int i = tid; i < g; i += THREADS) {
-    ms[i] = NEG_INF;
-    ls[i] = 0.0f;
-  }
+  const int bh = blockIdx.x / splits, split = blockIdx.x - bh * splits;
+  const int h = bh % kv, b = bh / kv;
   const int len = min(max(lengths[b], 0), s_len);
-  const size_t pos_stride = static_cast<size_t>(kv) * dh;
-  const size_t head0 = (static_cast<size_t>(b) * s_len * kv + h) * dh;
+  const int tiles = (s_len + BS - 1) / BS;
+  const int t0 = static_cast<int>(static_cast<long long>(tiles) * split /
+                                  splits);
+  const int t1 = static_cast<int>(static_cast<long long>(tiles) *
+                                  (split + 1) / splits);
+  const int n_tiles = max(0, min(t1, (len + BS - 1) / BS) - t0);
+
+  const int idx = lane / DUP;   // this lane's logit: head idx / RS,
+  const int row_of = idx % RS;  // row s·RS + idx % RS of the warp's PW
+  // The g query heads of this KV head are contiguous in q (B, H, dh).
+  // Register gg holds head gg XOR (idx / RS), and the partial sum of
+  // register r row r XOR row_of, so that partial (gg, r) holds logical
+  // value (gg·RS + r) XOR idx, as reduce_scatter takes it.
+  float qr[GP][E];
+  const float* qb = q + static_cast<size_t>(bh) * g * DH + lane * E;
+#pragma unroll
+  for (int gg = 0; gg < GP; ++gg) {
+    const int head = gg ^ (idx / RS);
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      qr[gg][e] = head < g ? qb[head * DH + e] : 0.0f;
+  }
+
+  float acc[GP][E];
+#pragma unroll
+  for (int gg = 0; gg < GP; ++gg)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[gg][e] = 0.0f;
+  float m = NEG_INF, l = 0.0f;  // of head lane / GL = idx / RS
+
+  const size_t pos_stride = static_cast<size_t>(kv) * DH;
+  const size_t head0 = (static_cast<size_t>(b) * s_len * kv + h) * DH;
   const T* kb = k + head0;
   const T* vb = v + head0;
-  __syncthreads();
+  const int pos_w = t0 * BS + warp * PW;
 
-  for (int s0 = 0; s0 < len; s0 += BS) {
-    const int n = min(BS, len - s0);
-    for (int i = tid; i < n * nv; i += THREADS) {
-      const int r = i / nv, c = (i - r * nv) * VEC;
-      const size_t off = (s0 + r) * pos_stride + c;
-      stage(kb + off, ks + r * ldk + c);
-      stage(vb + off, vs + r * dh + c);
-    }
-    __syncthreads();
-
-    // logits of the g heads at the n valid positions of the tile
-    for (int i = tid; i < g * BS; i += THREADS) {
-      const int gg = i / BS, r = i - gg * BS;
-      float logit = NEG_INF;
-      if (r < n) {
-        const float4* q4 = reinterpret_cast<const float4*>(qs + gg * dh);
-        const float4* k4 = reinterpret_cast<const float4*>(ks + r * ldk);
-        float dot = 0.0f;
-        for (int d = 0; d < dh4; ++d) {
-          const float4 a = q4[d], kk = k4[d];
-          dot = fmaf(a.x, kk.x, dot);
-          dot = fmaf(a.y, kk.y, dot);
-          dot = fmaf(a.z, kk.z, dot);
-          dot = fmaf(a.w, kk.w, dot);
-        }
-        logit = dot * scale;
-      }
-      ps[i] = logit;
-    }
-    __syncthreads();
-
-    // online softmax, one warp per query head
-    for (int gg = warp; gg < g; gg += THREADS / 32) {
-      float* pg = ps + gg * BS;
-      float mb = NEG_INF;
-      for (int r = lane; r < BS; r += 32) mb = fmaxf(mb, pg[r]);
-      const float m_prev = ms[gg];
-      const float m_new = fmaxf(m_prev, warp_max(mb));
-      float sum = 0.0f;
-      for (int r = lane; r < BS; r += 32) {
-        const float p = r < n ? expf(pg[r] - m_new) : 0.0f;
-        pg[r] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        al[gg] = alpha;
-        ls[gg] = ls[gg] * alpha + sum;
-        ms[gg] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc·alpha + p·V, four output columns per thread
-    for (int i = tid; i < g * dh4; i += THREADS) {
-      const int gg = i / dh4, d = (i - gg * dh4) * 4;
-      const float* pg = ps + gg * BS;
-      float4 a = *reinterpret_cast<float4*>(acc + gg * dh + d);
-      const float alpha = al[gg];
-      a.x *= alpha;
-      a.y *= alpha;
-      a.z *= alpha;
-      a.w *= alpha;
-      for (int r = 0; r < n; ++r) {
-        const float p = pg[r];
-        const float4 vv = *reinterpret_cast<const float4*>(vs + r * dh + d);
-        a.x = fmaf(p, vv.x, a.x);
-        a.y = fmaf(p, vv.y, a.y);
-        a.z = fmaf(p, vv.z, a.z);
-        a.w = fmaf(p, vv.w, a.w);
-      }
-      *reinterpret_cast<float4*>(acc + gg * dh + d) = a;
-    }
-    __syncthreads();
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_tiles)
+      load_tile<T, DH>(my_ring + i * L::STAGE, kb, vb, pos_w + i * BS, len,
+                       pos_stride, lane);
+    copy_commit();
   }
 
-  float* ob = out + (static_cast<size_t>(b) * kv + h) * gd;
-  for (int i = tid; i < gd; i += THREADS)
-    ob[i] = acc[i] / fmaxf(ls[i / dh], 1e-30f);
+  for (int i = 0; i < n_tiles; ++i) {
+    __syncwarp();  // every lane is done with tile i−1's stage and probs
+    const int nxt = i + STAGES - 1;
+    if (nxt < n_tiles)
+      load_tile<T, DH>(my_ring + (nxt % STAGES) * L::STAGE, kb, vb,
+                       pos_w + nxt * BS, len, pos_stride, lane);
+    copy_commit();
+    copy_wait<STAGES - 1>();  // this lane's copies of tile i landed
+    __syncwarp();             // and every lane's
+    const T* ks = my_ring + (i % STAGES) * L::STAGE;
+    const T* vs = ks + PW * DH;
+    const int pos0 = pos_w + i * BS;
+
+    // logits: one read of each K value, G partial dot products
+    float logit[NS];
+    bool valid[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      float part[N];
+#pragma unroll
+      for (int r = 0; r < RS; ++r) {
+        float kr[E];
+        load_row(ks + (s * RS + (r ^ row_of)) * DH + lane * E, kr);
+#pragma unroll
+        for (int gg = 0; gg < GP; ++gg) {
+          float d = qr[gg][0] * kr[0];
+#pragma unroll
+          for (int e = 1; e < E; ++e) d = fmaf(qr[gg][e], kr[e], d);
+          part[gg * RS + r] = d;
+        }
+      }
+      reduce_scatter<N>(part);
+      valid[s] = pos0 + s * RS + row_of < len;
+      logit[s] = valid[s] ? part[0] * scale : NEG_INF;
+    }
+
+    // online softmax of each head over the warp's PW rows
+    float mt = logit[0];
+#pragma unroll
+    for (int s = 1; s < NS; ++s) mt = fmaxf(mt, logit[s]);
+#pragma unroll
+    for (int mask = DUP; mask < GL; mask <<= 1)
+      mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, mask));
+    const float m_new = fmaxf(m, mt);
+    const float alpha = expf(m - m_new);
+    float p[NS], psum = 0.0f;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      p[s] = valid[s] ? expf(logit[s] - m_new) : 0.0f;
+      psum += p[s];
+    }
+#pragma unroll
+    for (int mask = DUP; mask < GL; mask <<= 1)
+      psum += __shfl_xor_sync(FULL, psum, mask);
+    l = l * alpha + psum;
+    m = m_new;
+    if ((lane & (DUP - 1)) == 0) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        probs[(s * RS + row_of) * GP + idx / RS] = p[s];
+    }
+    if (!__all_sync(FULL, alpha == 1.0f)) {  // a head's max moved
+#pragma unroll
+      for (int gg = 0; gg < GP; ++gg) {
+        const float a = __shfl_sync(FULL, alpha, gg * GL);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[gg][e] *= a;
+      }
+    }
+    __syncwarp();
+
+    // p·V: one read of each V value, G accumulators
+#pragma unroll
+    for (int j = 0; j < PW; ++j) {
+      float vr[E];
+      load_row(vs + j * DH + lane * E, vr);
+      float pj[GP];
+      load_probs<GP>(probs + j * GP, pj);
+#pragma unroll
+      for (int gg = 0; gg < GP; ++gg)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[gg][e] = fmaf(pj[gg], vr[e], acc[gg][e]);
+    }
+  }
+
+  // merge the warps' (m, l, acc) in warp order
+  copy_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+  float* macc = reinterpret_cast<float*>(smem4);  // [WARPS][GP][DH]
+  float* mm = macc + WARPS * GP * DH;              // [WARPS][GP]
+  float* ml = mm + WARPS * GP;
+#pragma unroll
+  for (int gg = 0; gg < GP; ++gg)
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      macc[(warp * GP + gg) * DH + lane * E + e] = acc[gg][e];
+  if (lane % GL == 0) {
+    mm[warp * GP + lane / GL] = m;
+    ml[warp * GP + lane / GL] = l;
+  }
+  __syncthreads();
+  const int gdh = g * DH;
+  for (int i = threadIdx.x; i < gdh; i += THREADS) {
+    const int gg = i / DH, d = i - gg * DH;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, mm[w * GP + gg]);
+    float ls = 0.0f, as = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt = expf(mm[w * GP + gg] - mx);
+      ls += ml[w * GP + gg] * wt;
+      as += macc[(w * GP + gg) * DH + d] * wt;
+    }
+    if (splits == 1) {
+      out[static_cast<size_t>(bh) * gdh + i] = as / fmaxf(ls, 1e-30f);
+    } else {
+      float* rec = ws + static_cast<size_t>(blockIdx.x) * (gdh + 2 * g);
+      rec[i] = as;
+      if (d == 0) {
+        rec[gdh + gg] = mx;
+        rec[gdh + g + gg] = ls;
+      }
+    }
+  }
 }
 
-template <typename T>
+// Block (bh, c): outputs [c·MERGE_THREADS, (c+1)·MERGE_THREADS) of
+// (batch, KV head) bh, one a thread, each the P partials (acc[g, dh],
+// m[g], l[g]) of ws merged in increasing split order.  The loop over
+// the splits is unrolled so that its loads are in flight together.
+__global__ void __launch_bounds__(MERGE_THREADS)
+decode_merge_kernel(const float* __restrict__ ws, float* __restrict__ out,
+                    int splits, int g, int dh) {
+  const int gdh = g * dh, rec = gdh + 2 * g;
+  const int i = blockIdx.y * MERGE_THREADS + threadIdx.x;
+  if (i >= gdh) return;
+  const float* r0 = ws + static_cast<size_t>(blockIdx.x) * splits * rec;
+  const float* mp = r0 + gdh + i / dh;  // m of head i / dh, split 0
+  float mx = NEG_INF;
+#pragma unroll 4
+  for (int p = 0; p < splits; ++p) mx = fmaxf(mx, mp[p * rec]);
+  float ls = 0.0f, as = 0.0f;
+#pragma unroll 4
+  for (int p = 0; p < splits; ++p) {
+    const float wt = expf(mp[p * rec] - mx);
+    ls += mp[p * rec + g] * wt;
+    as += r0[p * rec + i] * wt;
+  }
+  out[static_cast<size_t>(blockIdx.x) * gdh + i] = as / fmaxf(ls, 1e-30f);
+}
+
+template <typename T, int GP, int E>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           void* out, int b, int s_len, int kv, int g, int dh, float scale,
-           cudaStream_t st) {
-  const size_t smem = smem_bytes(g, dh);
+           void* out, void* ws, int b, int s_len, int kv, int g, int splits,
+           float scale, cudaStream_t st) {
+  constexpr size_t smem = Layout<T, GP, E>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      decode_split_kernel<T, GP, E>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_kernel<T><<<b * kv, THREADS, smem, st>>>(
+  decode_split_kernel<T, GP, E><<<b * kv * splits, THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lengths),
-      static_cast<float*>(out), s_len, kv, g, dh, scale);
+      static_cast<float*>(out), static_cast<float*>(ws), s_len, kv, g,
+      splits, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const dim3 merge_grid(b * kv,
+                        (g * 32 * E + MERGE_THREADS - 1) / MERGE_THREADS);
+  decode_merge_kernel<<<merge_grid, MERGE_THREADS, 0, st>>>(
+      static_cast<const float*>(ws), static_cast<float*>(out), splits, g,
+      32 * E);
   return static_cast<int>(cudaGetLastError());
+}
+
+// G padded to GP in {2, 4, 8, 16}; dh = 32·E in {64, 128}; GP·E <= 32
+// (q and the accumulators stay in registers).
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v,
+             const void* lengths, void* out, void* ws, int b, int s_len,
+             int kv, int g, int dh, int splits, float scale,
+             cudaStream_t st) {
+  const int gp = g <= 2 ? 2 : g <= 4 ? 4 : g <= 8 ? 8 : 16;
+#define DECODE_LAUNCH(GP, E)                                                  \
+  return launch<T, GP, E>(q, k, v, lengths, out, ws, b, s_len, kv, g, splits, \
+                          scale, st)
+  if (g >= 1 && g <= 16 && dh == 64) {
+    switch (gp) {
+      case 2: DECODE_LAUNCH(2, 2);
+      case 4: DECODE_LAUNCH(4, 2);
+      case 8: DECODE_LAUNCH(8, 2);
+      default: DECODE_LAUNCH(16, 2);
+    }
+  }
+  if (g >= 1 && g <= 8 && dh == 128) {
+    switch (gp) {
+      case 2: DECODE_LAUNCH(2, 4);
+      case 4: DECODE_LAUNCH(4, 4);
+      default: DECODE_LAUNCH(8, 4);
+    }
+  }
+#undef DECODE_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q (b, kv·g, dh) f32; k, v (b, s_len, kv, dh) f32 (bf16 == 0) or bf16;
-// lengths (b,) int32; out (b, kv·g, dh) f32.  dh % 8 == 0 and every
-// pointer 16-byte aligned (the wrapper checks both).
+// lengths (b,) int32; out (b, kv·g, dh) f32; ws the splits' partials,
+// (b·kv·splits, g·(dh + 2)) f32, unused (may be null) when splits == 1.
+// dh 64 or 128, g <= 1024 / dh (the wrapper checks), every pointer
+// 16-byte aligned, 1 <= splits <= ceil(s_len / 32).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* lengths,
-                                       void* out, int b, int s_len, int kv,
-                                       int g, int dh, float scale, int bf16,
-                                       void* stream) {
+                                       void* out, void* ws, int b, int s_len,
+                                       int kv, int g, int dh, int splits,
+                                       float scale, int bf16, void* stream) {
   if (b == 0 || kv == 0 || g == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<uint16_t>(q, k, v, lengths, out, b, s_len, kv, g, dh,
-                                 scale, st)
-              : launch<float>(q, k, v, lengths, out, b, s_len, kv, g, dh,
-                              scale, st);
+  return bf16 ? dispatch<uint16_t>(q, k, v, lengths, out, ws, b, s_len, kv, g,
+                                   dh, splits, scale, st)
+              : dispatch<float>(q, k, v, lengths, out, ws, b, s_len, kv, g,
+                                dh, splits, scale, st);
 }

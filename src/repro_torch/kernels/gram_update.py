@@ -35,8 +35,6 @@ the reference's CPU oracle.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.kernels import build, ref
@@ -77,11 +75,6 @@ def slice_ranges(c: int, splits: int) -> list:
             for s in range(splits)]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def gram_strip(rows: torch.Tensor, x: torch.Tensor,
                stats_rows: torch.Tensor, stats_all: torch.Tensor,
                row_ids: torch.Tensor, lam: float,
@@ -105,7 +98,7 @@ def gram_strip(rows: torch.Tensor, x: torch.Tensor,
     build.require(stats_all, "stats_all", (n, 2))
     build.require(row_ids, "row_ids", (k,), torch.int32)
     if splits is None:
-        splits = strip_splits(k, n, c, _sm_count(x.device.index))
+        splits = strip_splits(k, n, c, build.sm_count(x.device.index))
     most = max(1, min(65535, -(-c // CHUNK)))
     if not 1 <= splits <= most:
         raise ValueError(f"splits must lie in [1, {most}], got {splits}")

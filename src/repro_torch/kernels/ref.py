@@ -207,3 +207,81 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bngs,bsnd->bngd", p, v.float())
     return out.reshape(b, h, dh)
+
+
+#: cache positions per tile of the decode kernel
+#: (csrc/decode_attention.cu: BS); splits are runs of whole tiles
+DECODE_TILE = 32
+#: the decode kernel's masked logit and empty-split max
+NEG_INF = -1e30
+
+
+def decode_split_ranges(s: int, splits: int) -> list:
+    """The decode kernel's splits of [0, s): [(begin, end)] per split,
+    split p the tiles [T·p/P, T·(p+1)/P) of T = ceil(s / 32), the last
+    cut at s; 1 <= P <= T, as the kernel takes."""
+    tiles = -(-s // DECODE_TILE)
+    if not 1 <= splits <= tiles:
+        raise ValueError(f"splits must be in [1, {tiles}], got {splits}")
+    return [(tiles * p // splits * DECODE_TILE,
+             min(tiles * (p + 1) // splits * DECODE_TILE, s))
+            for p in range(splits)]
+
+
+def decode_split_partials(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, lengths, splits: int,
+                          scale: float | None = None):
+    """Each split's partial of :func:`decode_attention_split_ref`:
+    (m, l, acc), shapes (P, B, KV, G) twice and (P, B, KV, G, dh).  A
+    split's m is the max of its valid logits, -1e30 where it has none
+    (then l = 0 and acc = 0); l = Σ p and acc = Σ p·V over its valid
+    positions, p = e^{logit − m}."""
+    b, h, dh = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    scale = (dh ** -0.5) if scale is None else scale
+    qf = q.float().reshape(b, kv, h // kv, dh)
+    lens = torch.as_tensor(lengths, device=q.device).reshape(-1)
+    lens = lens.expand(b).clamp(0, s)
+    pos = torch.arange(s, device=q.device)
+    parts = []
+    for lo, hi in decode_split_ranges(s, splits):
+        logits = torch.einsum("bngd,bsnd->bngs", qf,
+                              k[:, lo:hi].float()) * scale
+        valid = (pos[lo:hi][None, :] < lens[:, None])[:, None, None, :]
+        logits = torch.where(valid, logits, NEG_INF)
+        m = logits.amax(dim=-1)
+        p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("bngs,bsnd->bngd", p,
+                                   v[:, lo:hi].float())))
+    return tuple(torch.stack(x) for x in zip(*parts))
+
+
+def merge_decode_partials(m: torch.Tensor, l: torch.Tensor,
+                          acc: torch.Tensor) -> torch.Tensor:
+    """The decode kernel's merge: splits in increasing order,
+    M = max m_p, l = Σ l_p·e^{m_p−M}, acc = Σ acc_p·e^{m_p−M}, then
+    acc / max(l, 1e-30) as (B, H, dh).  An empty split weighs
+    e^{−1e30−M} = 0; a row with no valid position gives 0."""
+    mx = m.amax(dim=0)
+    ls = torch.zeros_like(mx)
+    out = torch.zeros_like(acc[0])
+    for mp, lp, ap in zip(m, l, acc):
+        wt = torch.exp(mp - mx)
+        ls = ls + lp * wt
+        out = out + ap * wt[..., None]
+    out = out / torch.clamp(ls, min=1e-30)[..., None]
+    b, kv, g, dh = out.shape
+    return out.reshape(b, kv * g, dh)
+
+
+def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, lengths, splits: int,
+                               scale: float | None = None) -> torch.Tensor:
+    """GQA one-token decode attention as the kernel splits it: the
+    partial (m, l, acc) of each of ``splits`` runs of 32-position tiles
+    (:func:`decode_split_ranges`), merged in increasing split order.
+    Same arguments and result as :func:`decode_attention_ref`, except
+    that a row of length 0 is 0, as the kernel's."""
+    return merge_decode_partials(*decode_split_partials(
+        q, k, v, lengths, splits, scale))

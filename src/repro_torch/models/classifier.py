@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.losses import classifier_loss
+
 IMG = 14  # synthetic "image" side for the CNN
 
 
@@ -97,11 +99,21 @@ def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     return h @ params["lm_head"]["w"] + params["lm_head"]["b"]
 
 
-def make_classifier(cfg, input_dim: int = 196):
-    """(init(gen, device), apply(params, x)) for paper-cnn or paper-mlp."""
+def make_classifier(cfg, input_dim: int = 64):
+    """(init(gen, device), apply(params, x), loss_fn(params, batch)) for
+    paper-cnn or paper-mlp, as the reference's: ``loss_fn`` is
+    :func:`repro_torch.models.losses.classifier_loss` of the logits of
+    ``batch["x"]`` against ``batch["y"]``.  ``input_dim`` sizes the
+    mlp; the cnn takes 196 = 14·14."""
     if cfg.name.startswith("paper-cnn"):
-        return (lambda gen, device="cuda": init_cnn_params(gen, cfg, device),
-                cnn_apply)
-    return (lambda gen, device="cuda": init_mlp_params(gen, cfg, input_dim,
-                                                       device),
-            mlp_apply)
+        init = lambda gen, device="cuda": init_cnn_params(gen, cfg, device)
+        apply = cnn_apply
+    else:
+        init = lambda gen, device="cuda": init_mlp_params(gen, cfg, input_dim,
+                                                          device)
+        apply = mlp_apply
+
+    def loss_fn(params, batch):
+        return classifier_loss(apply(params, batch["x"]), batch["y"])
+
+    return init, apply, loss_fn

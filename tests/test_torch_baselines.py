@@ -126,7 +126,7 @@ def _topk_case(seed, shape):
 
 def _models(arch, seed=0):
     jinit, japply, _ = jax_classifier(jax_config(arch), input_dim=196)
-    _, tapply = make_classifier(get_config(arch), input_dim=196)
+    _, tapply, _ = make_classifier(get_config(arch), input_dim=196)
     jp = jinit(jax.random.PRNGKey(seed))
     return jp, params_from_jax(to_np(jp), "cpu"), japply, tapply
 

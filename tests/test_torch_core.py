@@ -6,7 +6,8 @@ Inputs come from seeded numpy; the samplers' Gumbel noise is replayed
 from the keys the reference draws with.  Ĥ is held to 5e-5; cluster
 labels and sampled ids must be identical.  Each test loops over its
 cases (``torch_parity.each``).  Also: the reference options the port
-does not run raise, and a 6-round HiCS run with ``gram_in_bf16`` on the
+does not run (selector, local update and driver) raise naming their
+ROADMAP.md item, and a 6-round HiCS run with ``gram_in_bf16`` on the
 CPU picks JAX's participants.
 """
 import numpy as np
@@ -33,7 +34,7 @@ from repro.fed import build as jax_build
 from repro_torch.core import Observations as TObservations
 from repro_torch.core import make_functional
 from repro_torch.data import SyntheticSpec
-from repro_torch.fed import ExperimentSpec, LocalSpec, build
+from repro_torch.fed import ExperimentSpec, FedConfig, LocalSpec, build
 from repro_torch.models import params_from_jax
 from torch_parity import JaxKeyChain, each, select_noise, to_np
 
@@ -221,7 +222,8 @@ def _raises_unported(name, bad, fine):
     defaults and names no selector reads, still builds."""
     kw = dict(num_clients=8, num_select=3, total_rounds=4, device="cpu")
     for opts in bad:
-        with pytest.raises(NotImplementedError, match="queue 1"):
+        with pytest.raises(NotImplementedError,
+                           match="queue 1: the rest of the selector layer"):
             make_functional(name, **kw, **opts)
     for opts in fine:
         make_functional(name, **kw, **opts).init()
@@ -248,6 +250,41 @@ def test_divfl_unported_options_raise():
                                {"stale_slots": 2, "refresh": "selected"}],
                      [{"stale_slots": 1, "refresh": "selected"},
                       {"no_such_option": 5}])
+
+
+def test_unported_local_and_driver_options_raise():
+    """The reference's ``LocalSpec``, ``FedConfig`` and
+    ``ExperimentSpec`` fields are taken; each value the port does not
+    run raises ``NotImplementedError`` naming its ROADMAP.md item by
+    title, an unknown algo or optimizer ``ValueError``, as the
+    reference's."""
+    local = "queue 1: the other local updates, momentum, and the estimator"
+    refused = [(lambda: LocalSpec(algo="fedprox"), local),
+               (lambda: LocalSpec(algo="feddyn", mu=0.01), local),
+               (lambda: LocalSpec(algo="moon", moon_tau=0.2), local),
+               (lambda: LocalSpec(optimizer="momentum"), local),
+               (lambda: LocalSpec(optimizer="adam"),
+                "queue 1: federated LM fine-tuning"),
+               (lambda: FedConfig(jit_rounds=True),
+                "queue 1: the scanned round driver"),
+               (lambda: FedConfig(telemetry=("selection",)),
+                "queue 1: telemetry"),
+               (lambda: build(ExperimentSpec(jit_rounds=True), device="cpu"),
+                "queue 1: the scanned round driver"),
+               (lambda: build(ExperimentSpec(telemetry=["training"]),
+                              device="cpu"), "queue 1: telemetry")]
+    for make, item in refused:
+        with pytest.raises(NotImplementedError, match=item):
+            make()
+    for bad in (dict(algo="fedsgd"), dict(optimizer="lamb")):
+        with pytest.raises(ValueError, match="must be one of"):
+            LocalSpec(**bad)
+    spec = LocalSpec(algo="fedavg", optimizer="sgd", lr=0.05, mu=0.3,
+                     moon_tau=0.1)
+    assert (spec.algo, spec.optimizer, spec.mu, spec.moon_tau) == (
+        "fedavg", "sgd", 0.3, 0.1)
+    cfg = FedConfig(local=spec, jit_rounds=False, telemetry=())
+    assert not cfg.jit_rounds and cfg.telemetry == ()
 
 
 def test_hics_bf16_run_picks_jax_participants():

@@ -215,6 +215,33 @@ def test_kernel_wrappers_refuse_cpu_tensors_at_launch():
     assert not build._loaded and not any(build.launches.values())
 
 
+def test_decode_kernel_layout_fits_the_card():
+    """Every (G, dh, cache type) the decode kernel takes fits a block's
+    shared memory with at least one block an SM, the warps' merge fits
+    in the ring it reuses (the source's static_assert), and the wrapper
+    refuses a CPU tensor, f32 or bf16, before it builds or loads
+    anything."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
+    for dh in da.HEAD_DIMS:
+        for g in range(1, 17):
+            if da.group_pad(g) * dh > da.MAX_GROUP_WIDTH:
+                continue
+            for elt in (2, 4):
+                smem = da.smem_bytes(g, dh, elt)
+                assert smem <= da.SMEM_LIMIT
+                assert 1 <= da.resident_blocks(g, dh, elt) <= da.MAX_RESIDENT
+                ring = da.WARPS * da.STAGES * 2 * da.PW * dh * elt
+                assert 4 * da.WARPS * da.group_pad(g) * (dh + 2) <= ring
+    kv = torch.zeros(1, 64, 2, 64)
+    for cache in (kv, kv.bfloat16()):
+        with pytest.raises(ValueError, match="CUDA"):
+            da.decode_attention_kernel(torch.zeros(1, 4, 64), cache, cache,
+                                       torch.ones(1, dtype=torch.int32),
+                                       0.125)
+    assert not build._loaded and not any(build.launches.values())
+
+
 def test_gram_in_bf16_entry_points_raise_without_cuda(no_cuda):
     """The option does not move an entry point off the card."""
     from repro_torch.core import make_functional

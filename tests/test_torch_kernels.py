@@ -28,6 +28,8 @@ from repro.kernels.hetero_entropy import entropy_pallas
 from repro.kernels.pairwise import hics_selection_step_pallas
 from repro_torch.kernels import gram_update as gu
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decode_attention import (decode_splits,
+                                                  resident_blocks)
 from repro_torch.kernels.fused_stats import fused_stats
 from repro_torch.kernels.gram_update import (cached_feature_step,
                                              cached_selection_step,
@@ -431,6 +433,104 @@ def test_decode_attention_plain_ragged_lengths():
     _close(got, want, 1e-4)
     first = np.broadcast_to(v[0, 0][:, None, :], (kv, h // kv, dh))
     _close(got[0].reshape(kv, h // kv, dh), first, 1e-4)
+
+
+def test_decode_splits_cover_every_tile_once():
+    """The split plan: 1 <= P <= the 32-position tiles, the splits'
+    ranges tile [0, S) in order with whole tiles, and P > 1 at the serve
+    shape (B 4, S 512) and at decode_32k (B 128, S 32,768), with the
+    default residency and with the kernel's own (3 blocks an SM of bf16
+    at G 8 and dh 128, 2 of f32)."""
+    assert resident_blocks(8, 128, 2) == 3
+    assert resident_blocks(8, 128, 4) == 2
+    for b, kv, s in [(4, 2, 512), (128, 2, 32_768), (3, 2, 96), (1, 1, 31),
+                     (1, 1, 32), (2, 8, 100), (64, 8, 4096),
+                     (1, 2, 1_000_000), (1024, 8, 64)]:
+        tiles = -(-s // ref.DECODE_TILE)
+        for resident in (1, 2, 3):
+            p = decode_splits(b, kv, s, resident=resident)
+            assert 1 <= p <= tiles, (b, kv, s, resident, p)
+            ranges = ref.decode_split_ranges(s, p)
+            assert len(ranges) == p and ranges[0][0] == 0
+            assert ranges[-1][1] == s
+            assert all(a[1] == c[0] for a, c in zip(ranges, ranges[1:]))
+            assert all(lo < hi and lo % ref.DECODE_TILE == 0
+                       for lo, hi in ranges)
+    for resident in (2, 3):
+        assert decode_splits(4, 2, 512, resident=resident) > 1
+        assert decode_splits(128, 2, 32_768, resident=resident) > 1
+    assert decode_splits(4, 2, 512) == 8
+    with pytest.raises(ValueError, match="splits"):
+        ref.decode_split_ranges(512, 17)
+
+
+def test_decode_split_plain_vs_pallas():
+    """The split plain version at G in {1, 2, 8}, dh in {64, 128}, f32
+    and bf16 K/V with an f32 q, P in {1, 2, 3, 8}: within 5e-5 absolute
+    and relative of the Pallas kernel in interpret mode and of the
+    unsplit plain version (both sides read the same K/V values in f32;
+    only the order of the sums differs)."""
+    each(_split_case, [1, 2, 8], [64, 128], [jnp.float32, jnp.bfloat16])
+
+
+def _split_case(g, dh, dtype):
+    b, kv, s = 2, 2, 256
+    rng = np.random.default_rng(g * dh)
+    q = rng.normal(size=(b, kv * g, dh)).astype(np.float32)
+    jk, tk = _to_jax(rng.normal(size=(b, s, kv, dh)), dtype)
+    jv, tv = _to_jax(rng.normal(size=(b, s, kv, dh)), dtype)
+    lens = np.array([s, 171])
+    want = decode_attention_pallas(jnp.asarray(q), jk, jv, lens,
+                                   block_s=64, interpret=True)
+    tq, tl = torch.tensor(q), torch.tensor(lens)
+    unsplit = ref.decode_attention_ref(tq, tk, tv, tl)
+    for splits in (1, 2, 3, 8):
+        got = ref.decode_attention_split_ref(tq, tk, tv, tl, splits)
+        assert got.dtype == torch.float32 and got.shape == (b, kv * g, dh)
+        _close(got, want, 5e-5, rtol=5e-5)
+        _close(got, unsplit, 5e-5, rtol=5e-5)
+
+
+def test_decode_split_plain_ragged_and_empty_rows():
+    """Lengths [0, 1, 64, 65, 512] at S 512 and P 8 (64 positions a
+    split, so whole splits lie past most lengths): every partial is
+    finite, a split at or past its row's length is (m, l, acc) =
+    (-1e30, 0, 0) and merges with weight 0 (the row is bit-equal to the
+    merge of its other splits), length 0 gives 0 as the Pallas kernel
+    does, and every row is within 1e-4 of the Pallas kernel and, past
+    length 0, of the unsplit plain version."""
+    b, kv, g, dh, s, splits = 5, 2, 8, 64, 512, 8
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.normal(size=sh).astype(np.float32)
+               for sh in ((b, kv * g, dh), (b, s, kv, dh), (b, s, kv, dh)))
+    lens = np.array([0, 1, 64, 65, 512])
+    tq, tk, tv, tl = map(torch.tensor, (q, k, v, lens))
+    m, l, acc = ref.decode_split_partials(tq, tk, tv, tl, splits)
+    assert all(bool(torch.isfinite(x).all()) for x in (m, l, acc))
+    ranges = ref.decode_split_ranges(s, splits)
+    for i, n in enumerate(lens):
+        live = [p for p, (lo, _) in enumerate(ranges) if lo < n]
+        for p, (lo, _) in enumerate(ranges):
+            if lo >= n:
+                assert bool((m[p, i] == ref.NEG_INF).all())
+                assert not l[p, i].any() and not acc[p, i].any()
+        got = ref.merge_decode_partials(m[:, i:i + 1], l[:, i:i + 1],
+                                        acc[:, i:i + 1])
+        if live:
+            alone = ref.merge_decode_partials(m[live, i:i + 1],
+                                              l[live, i:i + 1],
+                                              acc[live, i:i + 1])
+            assert torch.equal(got, alone)
+        else:
+            assert not got.any()
+    got = ref.merge_decode_partials(m, l, acc)
+    want = decode_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), lens, block_s=64,
+                                   interpret=True)
+    _close(got, want, 1e-4)
+    _close(got[1:], ref.decode_attention_ref(tq, tk, tv, tl)[1:], 1e-4)
+    assert torch.equal(got, ref.decode_attention_split_ref(tq, tk, tv, tl,
+                                                           splits))
 
 
 # ---------------------------------------------------------------------------

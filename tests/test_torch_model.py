@@ -1,8 +1,9 @@
-"""The port's classifiers and fedavg local update against the JAX
-reference, from params carried across with ``params_from_jax``.
+"""The port's classifiers, their loss and fedavg local update against
+the JAX reference, from params carried across with ``params_from_jax``.
 
-Logits and local params are held to 1e-5: the same f32 arithmetic in
-another order (conv, matmul and the backward pass reduce differently).
+Logits, losses and local params are held to 1e-5: the same f32
+arithmetic in another order (conv, matmul and the backward pass reduce
+differently).
 """
 import numpy as np
 import pytest
@@ -26,7 +27,7 @@ ARCHS = ["paper-cnn", "paper-mlp"]
 
 def _models(arch):
     jinit, japply, _ = jax_classifier(jax_config(arch), input_dim=196)
-    _, tapply = make_classifier(get_config(arch), input_dim=196)
+    _, tapply, _ = make_classifier(get_config(arch), input_dim=196)
     jparams = jinit(jax.random.PRNGKey(3))
     return japply, jparams, tapply, params_from_jax(to_np(jparams), "cpu")
 
@@ -54,7 +55,7 @@ def _logits_case(arch):
 
 
 def test_port_init_matches_reference_layout_and_scale():
-    init, apply = make_classifier(get_config("paper-cnn"))
+    init, apply, _ = make_classifier(get_config("paper-cnn"))
     params = init(torch.Generator().manual_seed(0), "cpu")
     jparams = params_from_jax(to_np(jax_classifier(
         jax_config("paper-cnn"))[0](jax.random.PRNGKey(0))), "cpu")
@@ -66,6 +67,40 @@ def test_port_init_matches_reference_layout_and_scale():
     assert float(w.abs().max()) <= 2.0 / 32.0 + 1e-6
     assert abs(float(w.std()) * 32.0 - 0.88) < 0.05
     assert apply(params, torch.zeros(2, 196)).shape == (2, 10)
+
+
+def test_loss_fn_matches_jax():
+    """``make_classifier``'s third value, the CE and the accuracy of a
+    batch, as the reference's ``loss_fn`` on the same params."""
+    set_precision()
+    each(_loss_case, ARCHS)
+
+
+def _loss_case(arch):
+    jinit, _, jloss = jax_classifier(jax_config(arch), input_dim=196)
+    _, _, tloss = make_classifier(get_config(arch), input_dim=196)
+    jparams = jinit(jax.random.PRNGKey(4))
+    x, y = _data(1, 64, seed=5)
+    want, wmet = jloss(jparams, {"x": jnp.asarray(x[0]),
+                                 "y": jnp.asarray(y[0])})
+    got, met = tloss(params_from_jax(to_np(jparams), "cpu"),
+                     {"x": torch.tensor(x[0]), "y": torch.tensor(y[0])})
+    np.testing.assert_allclose(float(got), float(want), atol=1e-5)
+    np.testing.assert_allclose(float(met["ce_loss"]),
+                               float(wmet["ce_loss"]), atol=1e-5)
+    assert float(met["accuracy"]) == float(wmet["accuracy"])
+
+
+def test_mlp_input_dim_defaults_to_the_reference_s():
+    """Without ``input_dim`` both packages size paper-mlp's first layer
+    for 64 inputs."""
+    jparams = jax_classifier(jax_config("paper-mlp"))[0](
+        jax.random.PRNGKey(0))
+    init, apply, _ = make_classifier(get_config("paper-mlp"))
+    params = init(torch.Generator().manual_seed(0), "cpu")
+    assert params["fc1"]["w"].shape == jparams["fc1"]["w"].shape
+    assert params["fc1"]["w"].shape[0] == 64
+    assert apply(params, torch.zeros(2, 64)).shape == (2, 10)
 
 
 def test_local_update_matches_jax():

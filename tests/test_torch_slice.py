@@ -5,7 +5,10 @@
 The port gets the reference's initial params (``params_from_jax``) and
 its key chain replayed into the port's noise and permutation inputs.
 Then the participants must be identical in every round, train loss and
-Ĥ within 1e-4 relative, and test accuracy within 1/100.
+Ĥ within 1e-4 relative, and test accuracy within 1/100.  Also
+``examples/quickstart.py``'s own spec (paper-mlp, 50 clients, K=5,
+``LocalSpec(algo="fedavg", optimizer="sgd", ...)``), cut to 2 rounds,
+builds and runs a port run with JAX's participants.
 """
 import numpy as np
 import pytest
@@ -77,3 +80,32 @@ def test_losses_entropies_and_accuracy_agree(runs):
     assert thist["test_round"] == jhist["test_round"]
     np.testing.assert_allclose(thist["test_acc"], jhist["test_acc"],
                                atol=1e-2)
+
+
+def test_quickstart_spec_picks_jax_participants():
+    """The reference's quickstart spec, word for word but for the
+    rounds, builds a port run on the CPU; with the reference's params
+    and key chain it picks JAX's participants in both rounds."""
+    def spec(experiment, synthetic, local):
+        return experiment(
+            arch="paper-mlp", num_clients=50, num_select=5, rounds=2,
+            alphas=(0.001, 0.002, 0.005, 0.01, 0.5), selector="hics",
+            selector_kw={"temperature": 0.63, "gamma0": 4.0,
+                         "normalize": True},
+            data=synthetic(noise=0.5, proto_scale=1.2),
+            local=local(algo="fedavg", optimizer="sgd", lr=0.05, epochs=2,
+                        batch_size=32),
+            samples_train=10_000, samples_test=2_000, eval_every=5, seed=0)
+
+    jserver, _ = jax_build(spec(JaxExperimentSpec, JaxSyntheticSpec,
+                                JaxLocalSpec))
+    tserver, _ = build(spec(ExperimentSpec, SyntheticSpec, LocalSpec),
+                       device="cpu")
+    tserver.params = params_from_jax(to_np(jserver.params), "cpu")
+    jhist = jserver.run()
+    thist = tserver.run(draws=JaxKeyChain(0, 50, 5, 5, 2,
+                                          tserver.x.shape[1]))
+    assert thist["selected"] == jhist["selected"]
+    assert len(thist["selected"]) == 2
+    np.testing.assert_allclose(thist["train_loss"], jhist["train_loss"],
+                               rtol=1e-4)
