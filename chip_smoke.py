@@ -5,7 +5,9 @@
 Builds the five CUDA kernels of ``src/repro_torch/kernels/csrc`` with
 nvcc, holds each against its plain PyTorch version on the card at the
 slice's shapes and at wider ones (the Gram kernels in both operand
-modes, the strip split across C and unsplit), runs the slice (one
+modes, the strip split across C and unsplit, the two stats kernels
+split across a thread-block cluster and unsplit, at the slice's shape
+and at C = 151,936), runs the slice (one
 14-round HiCS-FL run of paper-cnn at full width: 50 clients, K=5,
 10,000 samples) on the card and holds its first rounds against the
 port's own CPU run,
@@ -34,7 +36,9 @@ last, ``{"ok": true, "device": ...}``.  Exits non-zero, with no result
 line, without a CUDA device or when any check fails.
 
 Tolerances (kernel vs plain version, and cache vs from scratch): Ĥ to
-5e-5 at T = 0.63 and 1e-3 at T = 0.0025 (1/T amplifies f32 rounding);
+5e-5 at T = 0.63 and 1e-3 at T = 0.0025 (1/T amplifies f32 rounding),
+against the unsplit plain version and the plain version of the
+kernel's split alike (only the order of the sums differs);
 norms and distances to 1e-5 absolute plus 1e-5 relative (the λ = 10
 entropy term carries Ĥ's last-bit rounding into distances near 4);
 Euclidean (l2) distances to 1e-5 times the largest row norm absolute
@@ -72,7 +76,8 @@ from repro_torch.fed import (ExperimentSpec, LocalSpec, build,  # noqa: E402
                              flatten_params)
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.fused_stats import fused_stats_rows  # noqa: E402
+from repro_torch.kernels.fused_stats import (  # noqa: E402
+    fused_stats_rows, stats_splits)
 from repro_torch.kernels.gram_update import (  # noqa: E402
     gram_strip, strip_splits)
 from repro_torch.kernels.pairwise import pairwise  # noqa: E402
@@ -168,6 +173,30 @@ def time_ms_rotating(fns, iters: int = 48) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_spans(fns, iters: int, tries: int = 3) -> list:
+    """(name, µs) of every CUDA span ``torch.profiler`` recorded over
+    ``iters`` calls cycling through ``fns``, after one warm call each.
+    The profiler can drop records, once all of a window's: a window
+    with no span is profiled again, up to ``tries`` times, and an empty
+    list returned if none recorded one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        spans = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if spans:
+            return spans
+    return []
+
+
 def device_ms(fns, iters: int = 24) -> float:
     """Mean device time of a call cycling through ``fns``, each call
     launching each of its kernels once: per kernel, the mean of its own
@@ -175,21 +204,14 @@ def device_ms(fns, iters: int = 24) -> float:
     kernels, without the host's time between them.  The mean is over
     the spans the profiler recorded, not over ``iters``: the profiler
     can drop records (it once reported under half of decode_32k's
-    byte bound when divided by the calls)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
+    byte bound when divided by the calls).  A run in which it records
+    none is a failure, and the time NaN."""
     spans: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            spans.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for name, us in cuda_spans(fns, iters):
+        spans.setdefault(name, []).append(us)
+    if not spans:
+        failures.append("torch.profiler recorded no CUDA span in 3 tries")
+        return float("nan")
     return sum(sum(t) / len(t) for t in spans.values()) / 1e3
 
 
@@ -221,26 +243,90 @@ def stats_of(x: torch.Tensor, temperature: float, normalize: bool):
 # ---------------------------------------------------------------------------
 
 
-def fused_stats_case(n, c, temperature, scaled, dev, timed=False):
+def plain_stats(x, temperature, scale, normalize):
+    """The unsplit plain version of fused_stats: (Ĥ, norm, RMS), Ĥ of
+    the RMS-normalized rows under ``normalize``."""
+    ent, norm, rms = ref.fused_stats_ref(x, temperature, scale)
+    if normalize:
+        ent = ref.row_entropy(x, temperature, True)
+    return ent, norm, rms
+
+
+def rotating_copies(x: torch.Tensor) -> list:
+    """``x`` and enough copies of it to pass 60 MB, past the 50 MB L2."""
+    return [x] + [x.clone() for _ in range(int(np.ceil(60e6 / x.nbytes)))]
+
+
+def fused_stats_case(n, c, temperature, mode, dev, timed=False,
+                     splits=None, zero_row=False):
+    """fused_stats on (n, c) in ``mode`` ("unscaled": 1/T, "scaled": a
+    per-row scale, "normalized": 1/(RMS·T) in the same launch) against
+    both plain versions: the split one at the kernel's P
+    (``ref.fused_stats_split_ref``, default the plan for this card) and
+    the unsplit one; where P > 1 the kernel also runs unsplit (P = 1).
+    Tolerances in the module docstring; two calls must agree bit for
+    bit.  ``zero_row`` zeroes row 0 (RMS 0: Ĥ = ln C under
+    normalize)."""
     x = rows(n, c, seed=n + c, dev=dev)
+    if zero_row:
+        x[0] = 0.0
     scale = (torch.rand(n, generator=torch.Generator().manual_seed(1))
-             .to(dev) + 0.5) if scaled else None
-    kscale = (torch.full((n,), 1.0 / temperature, device=dev)
-              if scale is None else (scale / temperature).contiguous())
-    got = fused_stats_rows(x, kscale)
-    want = ref.fused_stats_ref(x, temperature, scale)
+             .to(dev) + 0.5) if mode == "scaled" else None
+    kscale = None if scale is None else (scale / temperature).contiguous()
+    normalize = mode == "normalized"
+    p = splits or stats_splits(n, c, kbuild.sm_count(dev.index or 0))
+
+    def call(xc=x, sp=p):
+        return fused_stats_rows(xc, temperature, row_scale=kscale,
+                                normalize=normalize, splits=sp)
+
+    got, again = call(), call()
+    want = plain_stats(x, temperature, scale, normalize)
+    want_split = ref.fused_stats_split_ref(x, temperature, p, scale,
+                                           normalize)
     h_tol = 5e-5 if temperature >= 0.01 else 1e-3
-    tag = f"fused_stats({n},{c},T={temperature},scaled={scaled})"
-    err = max(check(tag + ".ent", got[0], want[0], h_tol),
-              check(tag + ".norm", got[1], want[1], 1e-5, 1e-5),
-              check(tag + ".rms", got[2], want[2], 1e-5, 1e-5))
-    out = {"case": tag, "max_abs_err": err}
+    tag = f"fused_stats({n},{c},T={temperature},{mode},P={p}" + (
+        ",zero_row)" if zero_row else ")")
+
+    def errs(name, got):
+        return max(max(check(f"{name}.ent", got[0], w[0], h_tol),
+                       check(f"{name}.norm", got[1], w[1], 1e-5, 1e-5),
+                       check(f"{name}.rms", got[2], w[2], 1e-5, 1e-5))
+                   for w in (want, want_split))
+
+    err = errs(tag, got)
+    if zero_row and normalize:
+        err = max(err, check(tag + ".ln_C", got[0][:1],
+                             torch.full((1,), float(np.log(c)), device=dev),
+                             h_tol))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    require(f"{tag}: two calls on the same input differ", bit_equal)
+    out = {"case": tag, "splits": p, "max_abs_err": err,
+           "bit_equal": bit_equal}
+    if p > 1:
+        one = call(sp=1)
+        out["unsplit_max_abs_err"] = max(
+            check(f"{tag} unsplit (P = 1).ent", one[0], want[0], h_tol),
+            check(f"{tag} unsplit (P = 1).norm", one[1], want[1], 1e-5, 1e-5),
+            check(f"{tag} unsplit (P = 1).rms", one[2], want[2], 1e-5, 1e-5))
     if timed:
-        out["ms"] = time_ms(lambda: fused_stats_rows(x, kscale))
-        out["plain_ms"] = time_ms(
-            lambda: ref.fused_stats_ref(x, temperature, scale))
+        # a wide x cycled through copies past the 50 MB L2, as a
+        # caller finds Δb after a round; the slice's 5 x 10 stays warm
+        copies = rotating_copies(x) if x.nbytes > 1e6 else [x]
+        kern = [lambda xc=xc: call(xc) for xc in copies]
+        plain = [lambda xc=xc: plain_stats(xc, temperature, scale, normalize)
+                 for xc in copies]
+        out["ms"] = time_ms_rotating(kern)
+        out["plain_ms"] = time_ms_rotating(plain)
+        out["device_ms"] = device_ms(kern)
+        # x read once, the scale if any, three outputs written; per
+        # element a multiply, a max, a subtract, an exp, an add and two
+        # fmas.  Under normalize the kernel reads its slice twice (the
+        # second time mostly from L2), which the bound does not count
         out["bound_ms"], out["bound_by"] = bound(
-            4 * (n * c + n + 3 * n), 8 * n * c)
+            4 * (n * c + (n if mode == "scaled" else 0) + 3 * n), 8 * n * c)
+        out["bound_share"] = out["bound_ms"] / out["device_ms"]
+        out["library_ms"] = None
     return out
 
 
@@ -317,8 +403,7 @@ def feature_strip_case(k, n, c, epilogue, dev, timed=False, bf16=False):
     if timed:
         # copies of x past the 50 MB L2, so each call reads device
         # memory, as the selector's refresh after a round does
-        copies = [(xc, xc[ids].contiguous()) for xc in [x] + [
-            x.clone() for _ in range(int(np.ceil(60e6 / x.nbytes)))]]
+        copies = [(xc, xc[ids].contiguous()) for xc in rotating_copies(x)]
         kern = [lambda xc=xc, rc=rc: gram_strip(rc, xc, s_r, stats, ids32,
                                                 0.0, epilogue=epilogue,
                                                 gram_in_bf16=bf16)
@@ -422,8 +507,12 @@ def kernel_phase(dev):
     shape by operand mode."""
     t0 = time.perf_counter()
     slice_cases = {
-        "fused_stats": [fused_stats_case(5, 10, T_SLICE, True, dev, True),
-                        fused_stats_case(50, 10, T_SLICE, False, dev)],
+        "fused_stats": [fused_stats_case(5, 10, T_SLICE, "normalized", dev,
+                                         True),
+                        fused_stats_case(5, 10, T_SLICE, "scaled", dev),
+                        fused_stats_case(50, 10, T_SLICE, "unscaled", dev),
+                        fused_stats_case(50, 10, T_SLICE, "normalized",
+                                         dev)],
         "gram_update": [strip_case(5, 50, 10, T_SLICE, True, dev, True)],
         "pairwise": [pairwise_case(50, 10, T_SLICE, True, dev, True)],
     }
@@ -463,14 +552,36 @@ def kernel_phase(dev):
         wide.append(strip_case(10, 512, 1024, T_SLICE, normalize, dev, True))
         wide.append(pairwise_case(512, 1024, T_SLICE, normalize, dev, True))
         wide.append(cached_step_case(512, 4, 1024, normalize, dev))
+    # fused_stats at vocab width (qwen2.5-3b's C = 151,936): 64 rows, and
+    # the LM fine-tune's K = 2 refreshed rows at T = 0.01; then P forced
+    # past the plan at small C (C not a multiple of 4: rows at 4-byte
+    # offsets), empty slices (C < P x 32) and a zero row under normalize
+    stats_timed = []
     for temperature in (T_SLICE, 0.0025):
-        for scaled in (False, True):
-            wide.append(fused_stats_case(64, 151_936, temperature, scaled,
-                                         dev, timed=not scaled))
+        for mode in ("unscaled", "scaled", "normalized"):
+            timed = mode == "unscaled" or (mode == "normalized"
+                                           and temperature == T_SLICE)
+            wide.append(fused_stats_case(64, 151_936, temperature, mode, dev,
+                                         timed=timed))
+            if timed:
+                stats_timed.append(wide[-1])
+    for mode in ("unscaled", "scaled", "normalized"):
+        wide.append(fused_stats_case(2, 151_936, 0.01, mode, dev,
+                                     timed=mode == "unscaled"))
+        if mode == "unscaled":
+            stats_timed.append(wide[-1])
+    for mode in ("unscaled", "normalized"):
+        for splits in (3, 8):
+            wide.append(fused_stats_case(17, 4099, T_SLICE, mode, dev,
+                                         splits=splits))
+        wide.append(fused_stats_case(3, 40, 0.0025, mode, dev, splits=8))
+    for splits in (None, 3):
+        wide.append(fused_stats_case(4, 1000, T_SLICE, "normalized", dev,
+                                     splits=splits, zero_row=True))
     emit({"phase": "kernels", "slice_shapes": slice_cases,
           "wider_shapes": wide,
           "seconds": time.perf_counter() - t0})
-    return slice_cases, path_strip, modes
+    return slice_cases, path_strip, modes, stats_timed
 
 
 # ---------------------------------------------------------------------------
@@ -578,6 +689,9 @@ def slice_phase(dev):
     launches = dict(kbuild.launches)
     for name in ("fused_stats", "gram_update"):
         require(f"slice: {name} was not launched", launches[name] > 0)
+    # one stats launch a refresh, normalize included
+    require("slice: fused_stats launches differ from the strip's",
+            launches["fused_stats"] == launches["gram_update"])
     require("slice: non-finite train loss",
             bool(np.isfinite(hist["train_loss"]).all()))
     require("slice: bad test accuracy",
@@ -661,6 +775,8 @@ def from_scratch_phase(server, hist, dev):
     launches = dict(kbuild.launches)
     require("from_scratch: pairwise was not launched",
             launches["pairwise"] > 0)
+    require("from_scratch: fused_stats launches differ from pairwise's",
+            launches["fused_stats"] == launches["pairwise"])
     select_scratch = select_vs_plain(server2, False, "from_scratch")
     emit({"phase": "from_scratch", "max_abs_err": errs,
           "labels_identical": {
@@ -951,34 +1067,47 @@ PARITY_PREFILL_TOL = 1e-3
 PARITY_DECODE_TOL = 5e-2
 
 
-def entropy_case(n, c, dtype, dev, scale=0.02, timed=False):
-    """hetero_entropy on (n, c) against its plain version at T = 0.0025:
-    5e-5 absolute and relative for f32, 5e-3 for bf16; 0.05 absolute at
-    magnitude 500 (f32 rounding of u - m at |u| ~ 2e5)."""
+def entropy_case(n, c, dtype, dev, scale=0.02, timed=False, splits=None):
+    """hetero_entropy on (n, c) at T = 0.0025 against both plain
+    versions: the split one at the kernel's P (``ref.entropy_split_ref``,
+    default the plan for this card) and the unsplit one; where P > 1 the
+    kernel also runs unsplit (P = 1).  5e-5 absolute and relative for
+    f32, 5e-3 for bf16; 0.05 absolute at magnitude 500 (f32 rounding of
+    u - m at |u| ~ 2e5).  Two calls must agree bit for bit."""
     gen = torch.Generator(device=dev).manual_seed(n + c)
     x = (torch.randn((n, c), generator=gen, device=dev) * scale).to(dtype)
-    got = entropy_rows(x, T_ENT)
+    p = splits or stats_splits(n, c, kbuild.sm_count(dev.index or 0))
+    got, again = entropy_rows(x, T_ENT, p), entropy_rows(x, T_ENT, p)
     want = ref.entropy_ref(x, T_ENT)
+    want_split = ref.entropy_split_ref(x, T_ENT, p)
     dt = "bf16" if dtype == torch.bfloat16 else "f32"
-    tag = f"hetero_entropy({n},{c},{dt},scale={scale})"
+    tag = f"hetero_entropy({n},{c},{dt},scale={scale},P={p})"
     if scale >= 100:
-        err = check(tag, got, want, 0.05)
+        tol = (0.05, 0.0)
     else:
-        tol = 5e-5 if dtype == torch.float32 else 5e-3
-        err = check(tag, got, want, tol, tol)
-    out = {"case": tag, "max_abs_err": err}
+        tol = (5e-5, 5e-5) if dtype == torch.float32 else (5e-3, 5e-3)
+    err = max(check(tag, got, want, *tol),
+              check(tag + ".split", got, want_split, *tol))
+    bit_equal = torch.equal(got, again)
+    require(f"{tag}: two calls on the same input differ", bit_equal)
+    out = {"case": tag, "splits": p, "max_abs_err": err,
+           "bit_equal": bit_equal}
+    if p > 1:
+        out["unsplit_max_abs_err"] = check(
+            tag + " unsplit (P = 1)", entropy_rows(x, T_ENT, 1), want, *tol)
     if timed:
         elt = x.element_size()
-        copies = [x] + [x.clone() for _ in range(
-            int(np.ceil(60e6 / x.nbytes)))]
-        out["ms"] = time_ms_rotating(
-            [lambda x=x: entropy_rows(x, T_ENT) for x in copies])
+        copies = rotating_copies(x)
+        kern = [lambda x=x: entropy_rows(x, T_ENT) for x in copies]
+        out["ms"] = time_ms_rotating(kern)
         out["plain_ms"] = time_ms_rotating(
             [lambda x=x: ref.entropy_ref(x, T_ENT) for x in copies])
+        out["device_ms"] = device_ms(kern)
         # read x once, write n floats; per element a divide, a max, a
         # subtract, an exp, an add and an fma
         out["bound_ms"], out["bound_by"] = bound(elt * n * c + 4 * n,
                                                  6 * n * c)
+        out["bound_share"] = out["bound_ms"] / out["device_ms"]
         out["library_ms"] = None   # no single PyTorch call computes it
     return out
 
@@ -1098,7 +1227,16 @@ def serve_kernels_phase(dev):
                entropy_case(5, 10, torch.bfloat16, dev),
                entropy_case(64, 151_936, torch.float32, dev, timed=True),
                entropy_case(64, 151_936, torch.bfloat16, dev, timed=True),
-               entropy_case(4, 600, torch.float32, dev, scale=500.0)]
+               entropy_case(4, 600, torch.float32, dev, scale=500.0),
+               entropy_case(4, 600, torch.float32, dev, scale=500.0,
+                            splits=3)]
+    # P forced past the plan: C not a multiple of 4 or 8 (rows at 4- and
+    # 2-byte offsets), empty slices (C < P x 32), and the K = 2 rows
+    for dt in (torch.float32, torch.bfloat16):
+        for splits in (3, 8):
+            entropy.append(entropy_case(17, 4099, dt, dev, splits=splits))
+        entropy.append(entropy_case(3, 40, dt, dev, splits=8))
+        entropy.append(entropy_case(2, 151_936, dt, dev))
     cfg = get_model("qwen2.5-3b").cfg
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
     decode = [decode_case(4, h, kv, dh, 512, dt, dev, timed=True)
@@ -1352,7 +1490,7 @@ def main() -> int:
                            if "registers" in ln or "spill" in ln]
                     for name, log in reports.items()}})
 
-    slice_cases, path_strip, modes = kernel_phase(dev)
+    slice_cases, path_strip, modes, stats_timed = kernel_phase(dev)
     server, hist, launches = slice_phase(dev)
     scratch_launches = from_scratch_phase(server, hist, dev)
     del server
@@ -1397,9 +1535,17 @@ def main() -> int:
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": timed.get("library_ms")})
-    # the decode kernel's device time and split plan at its timed case
-    kernels[4].update({key: timed_case["decode_attention"][key]
-                       for key in ("splits", "device_ms", "bound_share")})
+    # the split plan and device time at each timed case of the stats
+    # kernels and the decode kernel; the stats kernels also at vocab
+    # width (fused_stats: 64 and 2 rows; hetero_entropy: bf16)
+    for kern in (kernels[0], kernels[3], kernels[4]):
+        kern.update({key: timed_case[kern["name"]][key]
+                     for key in ("splits", "device_ms", "bound_share")})
+    keys = ("case", "splits", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_share")
+    kernels[0]["wide"] = [{key: c[key] for key in keys} for c in stats_timed]
+    kernels[3]["wide"] = [{key: serve_cases["hetero_entropy"][3][key]
+                           for key in keys}]
     # the strip kernel per epilogue: its launches on its own path and
     # its timed case at that path's shape (arccos: the slice's K5×N50×
     # C10; cosine and l2: the baselines' K5×N50×F158,570)

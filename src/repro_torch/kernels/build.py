@@ -29,14 +29,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: C entry point and its argument types, per source
+#: C entry point and its argument types, per source.  The two stats
+#: kernels launch one thread-block cluster a row through
+#: ``cudaLaunchKernelEx``; the cluster size P <= 8 is portable, so it is
+#: a field of each call's launch config and no function attribute is set
 SIGNATURES = {
-    "fused_stats": ("fused_stats_launch", (_P, _P, _P, _P, _P, _I, _I, _P)),
+    "fused_stats": ("fused_stats_launch",
+                    (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P)),
     "gram_update": ("gram_strip_launch",
                     (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
                      _I, _P)),
     "pairwise": ("pairwise_launch", (_P, _P, _P, _I, _I, _F, _F, _I, _P)),
-    "hetero_entropy": ("entropy_launch", (_P, _P, _I, _I, _F, _I, _P)),
+    "hetero_entropy": ("entropy_launch", (_P, _P, _I, _I, _I, _F, _I, _P)),
     "decode_attention": ("decode_attention_launch",
                          (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _F, _I, _P)),

@@ -1,63 +1,44 @@
 // One pass per row of x: entropy of softmax(x * scale), L2 norm, RMS.
 //
-// Replaces src/repro/kernels/fused_stats.py:_fused_stats_kernel.  One
-// warp per row.  Each lane walks the row's columns lane, lane + 32, ...
-// with an online-softmax carry (m, Z, S) of u = x * scale plus the sum
-// of squares, where Z = sum exp(u - m) and S = sum exp(u - m) (u - m).
-// The 32 carries are merged by shuffle (entropy_carry.cuh).  Outputs
-// Ĥ = ln Z - S / Z, sqrt(sum x²) and sqrt(sum x² / C).  It reads
-// (N, C) once and writes 3N floats, so it is bound by memory bytes;
-// at the slice's C=10 the time is launch latency.
+// Replaces src/repro/kernels/fused_stats.py:_fused_stats_kernel, with
+// its per-row scale and the normalize step that its callers
+// (cached_selection_step_pallas, hics_selection_step_pallas) run as a
+// second sweep.  It reads (N, C) f32 once and writes 3N floats, so on
+// the H100 it is bound by the bytes of x.  The design is
+// entropy_carry.cuh's: each row split across the P blocks of one
+// thread-block cluster, 16-byte loads, one expf a column, the P
+// carries and sums of squares merged in rank order from distributed
+// shared memory.  Under normalize the cluster first adds the row's sum
+// of squares, so that every block scales x by 1 / (max(RMS, 1e-12) T)
+// in the same launch: one launch where the reference makes two, with
+// no torch op between them.  Outputs Ĥ = ln Z - S / Z, sqrt(sum x²)
+// and sqrt(sum x² / C).
 #include <cuda_runtime.h>
 
 #include "entropy_carry.cuh"
 
-namespace {
-
-constexpr int WARPS_PER_BLOCK = 8;
-
-__global__ void fused_stats_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ scale,
-                                   float* __restrict__ ent,
-                                   float* __restrict__ norm,
-                                   float* __restrict__ rms, int n, int c) {
-  const int row = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= n) return;  // uniform across the warp
-  const float* xr = x + (size_t)row * c;
-  const float sc = scale[row];
-  float m = carry::NEG, z = 0.0f, s = 0.0f, ss = 0.0f;
-  for (int j = lane; j < c; j += 32) {
-    const float v = xr[j];
-    carry::merge(m, z, s, v * sc, 1.0f, 0.0f);
-    ss = fmaf(v, v, ss);
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const float m_o = __shfl_xor_sync(0xffffffffu, m, off);
-    const float z_o = __shfl_xor_sync(0xffffffffu, z, off);
-    const float s_o = __shfl_xor_sync(0xffffffffu, s, off);
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-    carry::merge(m, z, s, m_o, z_o, s_o);
-  }
-  if (lane == 0) {
-    ent[row] = logf(z) - s / z;
-    norm[row] = sqrtf(ss);
-    rms[row] = sqrtf(ss / (float)c);
-  }
-}
-
-}  // namespace
-
-// x (n, c) f32, scale (n,) f32; ent, norm, rms (n,) f32.
-extern "C" int fused_stats_launch(const void* x, const void* scale,
+// x (n, c) f32; ent, norm, rms (n,) f32; splits P in [1, 8].  The
+// softmax reads x * s: s = row_scale[row] when row_scale is not null
+// (it carries 1/T), 1 / (max(RMS, 1e-12) * temperature) when normalize
+// is set, else inv_t.
+extern "C" int fused_stats_launch(const void* x, const void* row_scale,
                                   void* ent, void* norm, void* rms, int n,
-                                  int c, void* stream) {
-  if (n > 0) {
-    const int blocks = (n + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-    fused_stats_kernel<<<blocks, WARPS_PER_BLOCK * 32, 0,
-                         (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)scale, (float*)ent, (float*)norm,
-        (float*)rms, n, c);
-  }
-  return (int)cudaGetLastError();
+                                  int c, int splits, float inv_t,
+                                  float temperature, int normalize,
+                                  void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* rs = static_cast<const float*>(row_scale);
+  float* e = static_cast<float*>(ent);
+  float* nr = static_cast<float*>(norm);
+  float* r = static_cast<float*>(rms);
+  if (c <= 0 || (normalize && rs != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (normalize)
+    return carry::launch_split_rows(
+        carry::split_row_kernel<float, carry::kNormalize>, n, splits, st,
+        xf, c, splits, inv_t, rs, temperature, e, nr, r);
+  return carry::launch_split_rows(
+      carry::split_row_kernel<float, carry::kStats>, n, splits, st, xf, c,
+      splits, inv_t, rs, temperature, e, nr, r);
 }

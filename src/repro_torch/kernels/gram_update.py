@@ -23,8 +23,9 @@ reference casts a bf16 copy first) and keeps the sums f32; the stats
 stay those of the f32 rows.  It is bound by the bytes of x.
 
 :func:`cached_selection_step` mirrors ``cached_selection_step_pallas``:
-gather the K rows, fused stats on them (twice under ``normalize``),
-scatter the stats, the strip kernel, and the row and column scatter.
+gather the K rows, fused stats on them (one launch, ``normalize``
+included), scatter the stats, the strip kernel, and the row and column
+scatter.
 :func:`cached_feature_step` mirrors ``cached_feature_step_pallas``: the
 K rows' norms in plain torch (the reference too computes them outside
 the kernel), the strip kernel with the selector's epilogue and the
@@ -149,12 +150,8 @@ def cached_selection_step(updates: torch.Tensor, dist: torch.Tensor,
         return stats[:, 1], dist, stats
     x = updates.float().contiguous()
     rows = x[ids].contiguous()
-    inv_t = torch.full((k,), 1.0 / temperature, dtype=torch.float32,
-                       device=x.device)
-    ent_r, norm_r, rms_r = fused_stats_rows(rows, inv_t)
-    if normalize:
-        scale = 1.0 / (torch.clamp(rms_r, min=1e-12) * temperature)
-        ent_r, _, _ = fused_stats_rows(rows, scale)
+    ent_r, norm_r, _ = fused_stats_rows(rows, temperature,
+                                        normalize=normalize)
     stats = stats.float().contiguous().clone()
     stats[ids] = torch.stack([norm_r, ent_r], dim=-1)
     strip = gram_strip(rows, x, stats[ids].contiguous(), stats,

@@ -13,8 +13,8 @@ N = 50, C = 10 its time is the launch; at large N it rereads x once per
 device memory.
 
 :func:`hics_selection_step` mirrors ``hics_selection_step_pallas``:
-fused stats over all rows (twice under ``normalize``), then this
-kernel.  On a CPU tensor it takes the plain
+fused stats over all rows (one launch, ``normalize`` included), then
+this kernel.  On a CPU tensor it takes the plain
 :func:`repro_torch.kernels.ref.selection_step_ref`, f32 whatever
 ``gram_in_bf16`` says, as the reference's CPU oracle.
 """
@@ -51,12 +51,6 @@ def hics_selection_step(updates: torch.Tensor, temperature: float,
         return ref.selection_step_ref(updates, temperature, lam,
                                       normalize=normalize)
     x = updates.float().contiguous()
-    n = x.shape[0]
-    inv_t = torch.full((n,), 1.0 / temperature, dtype=torch.float32,
-                       device=x.device)
-    ent, norm, rms = fused_stats_rows(x, inv_t)
-    if normalize:
-        scale = 1.0 / (torch.clamp(rms, min=1e-12) * temperature)
-        ent, _, _ = fused_stats_rows(x, scale)
+    ent, norm, _ = fused_stats_rows(x, temperature, normalize=normalize)
     stats = torch.stack([norm, ent], dim=-1).contiguous()
     return ent, pairwise(x, stats, lam, gram_in_bf16=gram_in_bf16)

@@ -49,6 +49,93 @@ def fused_stats_ref(updates: torch.Tensor, temperature: float,
     return ent, torch.sqrt(sumsq), torch.sqrt(sumsq / x.shape[-1])
 
 
+#: the stats kernels' slices (csrc/entropy_carry.cuh): boundaries on
+#: whole STATS_UNIT-column units, at most MAX_STATS_SPLITS (the portable
+#: cluster size); an empty slice's carry is (STATS_NEG, 0, 0)
+STATS_UNIT = 32
+MAX_STATS_SPLITS = 8
+STATS_NEG = -1e30
+
+
+def stats_slice_ranges(c: int, splits: int) -> list:
+    """The stats kernels' slices of [0, c): [(begin, end)] per slice,
+    slice p the units [U·p/P, U·(p+1)/P) of U = ceil(c / 32), the last
+    cut at c; a slice may be empty (U < P)."""
+    if not 1 <= splits <= MAX_STATS_SPLITS:
+        raise ValueError(f"splits must be in [1, {MAX_STATS_SPLITS}], got "
+                         f"{splits}")
+    units = -(-c // STATS_UNIT)
+    return [(units * p // splits * STATS_UNIT,
+             min(units * (p + 1) // splits * STATS_UNIT, c))
+            for p in range(splits)]
+
+
+def _slice_carry(u: torch.Tensor):
+    """(m, Z, S) of each row of u (N, w): m the max, Z = Σ e^{u−m},
+    S = Σ e^{u−m}(u − m); (-1e30, 0, 0) where w = 0."""
+    n = u.shape[0]
+    if u.shape[1] == 0:
+        return (torch.full((n,), STATS_NEG, dtype=torch.float32,
+                           device=u.device),
+                torch.zeros(n, device=u.device),
+                torch.zeros(n, device=u.device))
+    m = u.amax(dim=-1)
+    d = u - m[:, None]
+    e = torch.exp(d)
+    return m, e.sum(dim=-1), (e * d).sum(dim=-1)
+
+
+def merge_carries(carries) -> torch.Tensor:
+    """Ĥ = ln Z − S / Z of the carries merged in their order, as the
+    kernels' rank 0 merges its cluster's (``carry::merge``)."""
+    m, z, s = carries[0]
+    for mo, zo, so in carries[1:]:
+        mn = torch.maximum(m, mo)
+        a, b = torch.exp(m - mn), torch.exp(mo - mn)
+        s = (s + (m - mn) * z) * a + (so + (mo - mn) * zo) * b
+        z = z * a + zo * b
+        m = mn
+    return torch.log(z) - s / z
+
+
+def entropy_split_ref(updates: torch.Tensor, temperature: float,
+                      splits: int) -> torch.Tensor:
+    """H(softmax(x / T)) row-wise as ``hetero_entropy.cu`` splits it:
+    one carry per slice of :func:`stats_slice_ranges`, merged in slice
+    order.  Same result as :func:`entropy_ref`, to f32 rounding."""
+    u = updates.float() / temperature
+    return merge_carries([_slice_carry(u[:, lo:hi]) for lo, hi in
+                          stats_slice_ranges(u.shape[1], splits)])
+
+
+def fused_stats_split_ref(updates: torch.Tensor, temperature: float,
+                          splits: int, row_scale: torch.Tensor | None = None,
+                          normalize: bool = False):
+    """(entropy, l2 norm, rms) as ``fused_stats.cu`` splits each row:
+    per slice a carry and a sum of squares, added and merged in slice
+    order.  The softmax reads x·s: s = row_scale / T, or under
+    ``normalize`` 1 / (max(RMS, 1e-12)·T) from the merged sum of
+    squares, else 1/T."""
+    x = updates.float()
+    c = x.shape[1]
+    ranges = stats_slice_ranges(c, splits)
+    sumsq = torch.zeros(x.shape[0], device=x.device)
+    for lo, hi in ranges:
+        sumsq = sumsq + (x[:, lo:hi] * x[:, lo:hi]).sum(dim=-1)
+    rms = torch.sqrt(sumsq / c)
+    if normalize:
+        if row_scale is not None:
+            raise ValueError("normalize takes no row_scale")
+        scale = 1.0 / (torch.clamp(rms, min=1e-12) * temperature)
+        u = x * scale[:, None]
+    elif row_scale is not None:
+        u = x * (row_scale.float() / temperature)[:, None]
+    else:
+        u = x * (1.0 / temperature)
+    ent = merge_carries([_slice_carry(u[:, lo:hi]) for lo, hi in ranges])
+    return ent, torch.sqrt(sumsq), rms
+
+
 def row_entropy(rows: torch.Tensor, temperature: float,
                 normalize: bool) -> torch.Tensor:
     """Ĥ of each row; ``normalize`` RMS-normalizes the rows first."""

@@ -1,7 +1,7 @@
 """Rules of the PyTorch port that no parity test would catch.
 
-* The port, ``chip_smoke.py`` and ``tools/strip_profile.py`` import
-  neither JAX nor anything of the JAX package ``repro``.
+* The port, ``chip_smoke.py`` and ``tools/{strip,decode,stats}_profile.py``
+  import neither JAX nor anything of the JAX package ``repro``.
 * The kernel modules import without ``triton`` and without ``nvcc``.
 * Entry points default to the card (the ops, the selector factories,
   the experiment builder, model init and the serve entry point): called
@@ -22,8 +22,9 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tools" / "strip_profile.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / "tools" / f"{name}_profile.py"
+        for name in ("strip", "decode", "stats")]
 
 
 def _imported_modules(path: Path):
@@ -182,7 +183,11 @@ def test_kernel_wrappers_refuse_cpu_tensors_at_launch():
     from repro_torch.kernels.decode_attention import decode_attention_kernel
     x = torch.zeros(4, 10)
     with pytest.raises(ValueError, match="CUDA"):
-        fused_stats_rows(x, torch.ones(4))
+        fused_stats_rows(x, 0.63)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_stats_rows(x, 0.63, normalize=True, splits=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_stats_rows(x, 0.63, row_scale=torch.ones(4))
     with pytest.raises(ValueError, match="CUDA"):
         gram_strip(x[:2], x, torch.ones(2, 2), torch.ones(4, 2),
                    torch.zeros(2, dtype=torch.int32), 10.0)
@@ -204,6 +209,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_at_launch():
         entropy_rows(x, 0.0025)
     with pytest.raises(ValueError, match="CUDA"):
         entropy_rows(x.bfloat16(), 0.0025)
+    with pytest.raises(ValueError, match="CUDA"):
+        entropy_rows(x, 0.0025, splits=8)
     kv = torch.zeros(1, 3, 2, 8)
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention_kernel(torch.zeros(1, 4, 8), kv, kv,

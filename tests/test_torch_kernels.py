@@ -30,7 +30,7 @@ from repro_torch.kernels import gram_update as gu
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (decode_splits,
                                                   resident_blocks)
-from repro_torch.kernels.fused_stats import fused_stats
+from repro_torch.kernels.fused_stats import fused_stats, stats_splits
 from repro_torch.kernels.gram_update import (cached_feature_step,
                                              cached_selection_step,
                                              gram_row_update)
@@ -699,3 +699,190 @@ def test_strip_splits_and_slice_ranges():
     assert gu.strip_splits(5, 50, 158_570, sms=264) > gu.strip_splits(
         5, 50, 158_570)
     assert gu.strip_splits(5, 50, 8 * 32 * 3) == 3
+
+
+# ---------------------------------------------------------------------------
+# the stats kernels' split (fused_stats, hetero_entropy): each row cut
+# into P slices of whole 32-column units, one carry (m, Z, S) and sum
+# of squares per slice, merged in slice order.  The split plain versions
+# at forced P against the Pallas kernels in interpret mode and the
+# unsplit plain versions, at the tolerances above (Ĥ 5e-5 at T = 0.63
+# and 1e-3 at 0.0025, norm and RMS 1e-5 + 1e-5 relative, bf16 entropy
+# 5e-3): only the order of the sums differs.
+# ---------------------------------------------------------------------------
+
+STATS_SPLITS = (1, 3, 8)
+
+
+def test_stats_splits_cover_every_column_once():
+    """P <= 8, P = 1 at the slice's C = 10, P = 8 at vocab width for 2
+    and 64 rows; the slices tile [0, C) in order on 32-column units,
+    and C < P x 32 leaves empty slices."""
+    assert stats_splits(5, 10) == 1 and stats_splits(50, 10) == 1
+    assert stats_splits(2, 151_936) == 8 and stats_splits(64, 151_936) == 8
+    assert stats_splits(512, 1024) == 1
+    for n, c in [(5, 10), (50, 10), (2, 151_936), (64, 151_936), (3, 40),
+                 (17, 4099), (1, 1), (1000, 1_000_000), (64, 4096)]:
+        p = stats_splits(n, c)
+        assert 1 <= p <= ref.MAX_STATS_SPLITS
+        for splits in {p, 1, 3, 8}:
+            ranges = ref.stats_slice_ranges(c, splits)
+            assert len(ranges) == splits
+            assert ranges[0][0] == 0 and ranges[-1][1] == c
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+            assert all(lo % ref.STATS_UNIT == 0 and lo <= hi
+                       for lo, hi in ranges)
+            if c >= splits * ref.STATS_UNIT:
+                assert all(lo < hi for lo, hi in ranges)
+    assert sum(lo == hi for lo, hi in ref.stats_slice_ranges(40, 8)) == 6
+    with pytest.raises(ValueError, match="splits"):
+        ref.stats_slice_ranges(100, 9)
+
+
+def test_fused_stats_split_plain_vs_pallas():
+    """fused_stats_split_ref at P in {1, 3, 8}, unscaled, with a per-row
+    scale and normalized (the selection steps' one launch: Σx² merged
+    first, then x·1/(max(RMS, 1e-12)·T)), against fused_stats_pallas
+    (normalized: its two passes, as the reference's selection steps
+    make them) and the unsplit plain versions.  C = 1030 is not a
+    multiple of 4."""
+    each(_fused_split_case, [(5, 10), (17, 1030)], [0.63, 0.0025],
+         ["unscaled", "scaled", "normalized"])
+
+
+def _fused_split_case(shape, temperature, mode):
+    n, c = shape
+    x = _x(n, c, seed=4)
+    jx, tx = jnp.asarray(x), torch.tensor(x)
+    scale = (np.random.default_rng(1).uniform(0.5, 2.0, n).astype(np.float32)
+             if mode == "scaled" else None)
+    js = None if scale is None else jnp.asarray(scale)
+    pallas = fused_stats_pallas(jx, temperature, row_scale=js, interpret=True)
+    plain = ref.fused_stats_ref(tx, temperature,
+                                None if scale is None else torch.tensor(scale))
+    if mode == "normalized":
+        # gram_update.py:236-239 and pairwise.py:149-154 of the reference
+        inv = 1.0 / (jnp.clip(pallas[2], 1e-12, None) * temperature)
+        ent = fused_stats_pallas(jx, temperature, row_scale=inv * temperature,
+                                 interpret=True)[0]
+        pallas = (ent, pallas[1], pallas[2])
+        plain = (ref.row_entropy(tx, temperature, True), plain[1], plain[2])
+    h_tol, _ = _tol(temperature)
+    for splits in STATS_SPLITS:
+        got = ref.fused_stats_split_ref(
+            tx, temperature, splits,
+            None if scale is None else torch.tensor(scale),
+            normalize=mode == "normalized")
+        for want in (pallas, plain):
+            _close(got[0], want[0], h_tol)
+            _close(got[1], want[1], 1e-5, rtol=1e-5)
+            _close(got[2], want[2], 1e-5, rtol=1e-5)
+
+
+def test_entropy_split_plain_vs_pallas():
+    """entropy_split_ref at P in {1, 3, 8}, f32 and bf16, against
+    entropy_pallas and the unsplit plain version at T = 0.0025; C = 1030
+    and 4099 are multiples of neither 4 nor 8."""
+    each(_entropy_split_case, [(5, 10), (17, 1030), (8, 4099)],
+         [jnp.float32, jnp.bfloat16])
+
+
+def _entropy_split_case(shape, dtype):
+    jx, tx = _to_jax(np.random.default_rng(sum(shape) + 1).normal(size=shape)
+                     * 0.02, dtype)
+    want = entropy_pallas(jx, 0.0025, interpret=True)
+    plain = ref.entropy_ref(tx, 0.0025)
+    tol = 5e-5 if dtype == jnp.float32 else 5e-3
+    for splits in STATS_SPLITS:
+        got = ref.entropy_split_ref(tx, 0.0025, splits)
+        assert got.dtype == torch.float32 and got.shape == (shape[0],)
+        _close(got, want, tol, rtol=tol)
+        _close(got, plain, tol, rtol=tol)
+
+
+def test_stats_split_plain_edge_cases():
+    """Empty slices (C = 40 < 8 x 32) merge to the unsplit result with no
+    NaN; a zero row under normalize has RMS 0, scale 1/(1e-12·T) and
+    Ĥ = ln C in the split, unsplit and reference versions; rows of
+    magnitude 500 at T = 0.0025 stay finite and within 0.05 of Pallas
+    (as test_entropy_plain_extreme_magnitudes)."""
+    x = _x(3, 40, seed=6)
+    tx = torch.tensor(x)
+    for temperature in (0.63, 0.0025):
+        h_tol, _ = _tol(temperature)
+        got = ref.fused_stats_split_ref(tx, temperature, 8)
+        assert all(bool(torch.isfinite(a).all()) for a in got)
+        _close(got[0], ref.fused_stats_ref(tx, temperature)[0], h_tol)
+        _close(ref.entropy_split_ref(tx, temperature, 8),
+               ref.entropy_ref(tx, temperature), h_tol)
+    empty = ref._slice_carry(tx[:, 5:5])
+    assert torch.equal(ref.merge_carries([empty, ref._slice_carry(tx)]),
+                       ref.merge_carries([ref._slice_carry(tx)]))
+
+    z = _x(4, 1000, seed=7)
+    z[1] = 0.0
+    tz = torch.tensor(z)
+    ln_c = np.full(1, np.log(1000.0), np.float32)
+    for splits in STATS_SPLITS:
+        ent, _, rms = ref.fused_stats_split_ref(tz, 0.63, splits,
+                                                normalize=True)
+        assert float(rms[1]) == 0.0
+        _close(ent[1:2], ln_c, 5e-5)
+    _close(ref.row_entropy(tz, 0.63, True)[1:2], ln_c, 5e-5)
+    j_ent, _ = jref.selection_step_ref(jnp.asarray(z), 0.63, LAM,
+                                       normalize=True)
+    _close(np.asarray(j_ent)[1:2], ln_c, 5e-5)
+
+    big = np.random.default_rng(0).normal(size=(4, 600)) * 500.0
+    jx, tx = _to_jax(big, jnp.float32)
+    want = entropy_pallas(jx, 0.0025, interpret=True)
+    for splits in STATS_SPLITS:
+        got = ref.entropy_split_ref(tx, 0.0025, splits)
+        assert torch.isfinite(got).all()
+        _close(got, want, 0.05)
+
+
+def test_one_launch_normalize_steps_vs_pallas():
+    """The selection steps' stats as the card now makes them, in one
+    launch (``fused_stats_split_ref(..., normalize=True)`` at the
+    kernel's plan, and at P = 3 on a wider C), composed with the strip
+    and the pairwise matrix as ``gram_update.cached_selection_step`` and
+    ``pairwise.hics_selection_step`` compose them, against the
+    reference's two-pass ``cached_selection_step_pallas`` and
+    ``hics_selection_step_pallas`` on the slice's shape (50 clients,
+    K = 5, C = 10, T = 0.63)."""
+    each(_one_launch_case, [(50, 10, None), (50, 1030, 3)])
+
+
+def _one_launch_case(case):
+    (n, c, splits), temperature = case, 0.63
+    x_old, x = _x(n, c, seed=12), _x(n, c, seed=13)
+    ids = np.array([1, n - 1, n // 2, 7, 1], np.int32)   # duplicate 1
+    x_new = x_old.copy()
+    x_new[ids] = x[ids]
+    _, dist0, stats0 = _cache(x_old, temperature, True)
+    tx, tids = torch.tensor(x_new), torch.tensor(ids, dtype=torch.int64)
+    rows = tx[tids]
+    p = splits or stats_splits(len(ids), c)
+    ent_r, norm_r, _ = ref.fused_stats_split_ref(rows, temperature, p,
+                                                 normalize=True)
+    stats = stats0.clone()
+    stats[tids] = torch.stack([norm_r, ent_r], dim=-1)
+    strip = ref.distance_strip_ref(tx, stats, tids, LAM)
+    dist = ref.scatter_strip(dist0, strip, tids)
+    p_ent, p_dist, p_stats = cached_selection_step_pallas(
+        jnp.asarray(x_new), jnp.asarray(dist0.numpy()),
+        jnp.asarray(stats0.numpy()), jnp.asarray(ids), temperature,
+        lam=LAM, normalize=True, interpret=True)
+    _close(stats[:, 1], p_ent, 5e-5)
+    _close(stats[:, 0], np.asarray(p_stats)[:, 0], 1e-5, rtol=1e-5)
+    _close_dist(dist, p_dist, 1e-5)
+
+    ent, norm, _ = ref.fused_stats_split_ref(
+        tx, temperature, splits or stats_splits(n, c), normalize=True)
+    full = ref.pairwise_distance_ref(tx, ent, LAM)
+    s_ent, s_dist = hics_selection_step_pallas(
+        jnp.asarray(x_new), temperature, lam=LAM, normalize=True,
+        interpret=True)
+    _close(ent, s_ent, 5e-5)
+    _close_dist(full, s_dist, 1e-5)
