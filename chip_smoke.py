@@ -7,7 +7,10 @@ nvcc, holds each against its plain PyTorch version on the card at the
 slice's shapes and at wider ones (the Gram kernels in both operand
 modes, the strip split across C and unsplit, the two stats kernels
 split across a thread-block cluster and unsplit, at the slice's shape
-and at C = 151,936), runs the slice (one
+and at C = 151,936, and ``pairwise`` against the plain version of its
+split and unsplit, at forced S, N off its 64-row tile, C = 4,099, a
+zero row and the reference's 256×151,936, timed beside ``x @ x.T``),
+runs the slice (one
 14-round HiCS-FL run of paper-cnn at full width: 50 clients, K=5,
 10,000 samples) on the card and holds its first rounds against the
 port's own CPU run,
@@ -80,7 +83,8 @@ from repro_torch.kernels.fused_stats import (  # noqa: E402
     fused_stats_rows, stats_splits)
 from repro_torch.kernels.gram_update import (  # noqa: E402
     gram_strip, strip_splits)
-from repro_torch.kernels.pairwise import pairwise  # noqa: E402
+from repro_torch.kernels.pairwise import (  # noqa: E402
+    pairwise, pairwise_plan)
 from repro_torch.kernels.hetero_entropy import entropy_rows  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_kernel, kernel_splits)
@@ -93,6 +97,7 @@ ROUNDS = 14
 CPU_ROUNDS = 3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM, bf16 on the tensor cores, dense
 SELECTOR_KW = dict(temperature=T_SLICE, gamma0=4.0, normalize=True,
                    incremental=True)
 SPEC = ExperimentSpec(
@@ -215,15 +220,18 @@ def device_ms(fns, iters: int = 24) -> float:
     return sum(sum(t) / len(t) for t in spans.values()) / 1e3
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, operands: str = "f32"):
     """(bound_ms, bound_by): the larger of bytes over HBM rate and
-    operations over the f32 rate.  The callers count the least work
-    the function needs: each distinct input read once, each output
-    written once, and one dot product per distinct off-diagonal pair
-    of the (symmetric) Eq. 9 matrix, 2·C operations each, plus ~10
-    for the epilogue."""
+    operations over the peak of the work's operand mode: f32 on the
+    CUDA cores, or the Gram kernels' bf16 operands (``gram_in_bf16``)
+    on the tensor cores.  The callers count the least work the
+    function needs: each distinct input read once, each output written
+    once, and one dot product per distinct off-diagonal pair of the
+    (symmetric) Eq. 9 matrix, 2·C operations each, plus ~10 for the
+    epilogue."""
+    peak = {"f32": F32_FLOPS_PER_S, "bf16": BF16_FLOPS_PER_S}[operands]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -362,7 +370,8 @@ def strip_case(k, n, c, temperature, normalize, dev, timed=False,
         # the K x K block is symmetric and its diagonal zero
         pairs = k * n - k * (k + 1) // 2
         out["bound_ms"], out["bound_by"] = bound(
-            4 * (n * c + 2 * n + k + k * n), 2 * c * pairs + 10 * pairs)
+            4 * (n * c + 2 * n + k + k * n), 2 * c * pairs + 10 * pairs,
+            kbuild.OPERANDS[bf16])
         out["bound_share"] = out["bound_ms"] / out["ms"]
     return out
 
@@ -427,7 +436,7 @@ def feature_strip_case(k, n, c, epilogue, dev, timed=False, bf16=False):
         pairs = k * n - k * (k + 1) // 2
         out["bound_ms"], out["bound_by"] = bound(
             4 * (k * c + n * c + k + n + k + k * n),
-            2 * c * pairs + 10 * pairs)
+            2 * c * pairs + 10 * pairs, kbuild.OPERANDS[bf16])
         out["bound_share"] = out["bound_ms"] / out["ms"]
         out["device_bound_share"] = out["bound_ms"] / out["device_ms"]
         # torch.cdist: f32 Euclidean distances of the same rows, timed
@@ -452,27 +461,62 @@ def feature_strip_case(k, n, c, epilogue, dev, timed=False, bf16=False):
 
 
 def pairwise_case(n, c, temperature, normalize, dev, timed=False,
-                  bf16=False):
+                  bf16=False, splits=None, zero_row=False):
+    """pairwise on (n, c) against both plain versions: the split one at
+    the kernel's S (``ref.pairwise_split_ref``, default the plan for
+    this card) and the unsplit one; where S > 1 the kernel also runs
+    unsplit (S = 1).  Every case must be bit-symmetric, zero on the
+    diagonal and bit-equal call to call.  ``zero_row`` zeroes row 0
+    (its cosines are 0: distances π/2 + λ|ΔĤ|).  Timed: events over
+    back-to-back calls, the kernel's device time, and ``x @ x.T``'s
+    (cuBLAS SGEMM with TF32 off, both halves of the products, a
+    yardstick and not the same function: ``library_ms`` stays null)."""
     x = rows(n, c, seed=3 * n + c, dev=dev)
+    if zero_row:
+        x[0] = 0.0
     stats = stats_of(x, temperature, normalize).contiguous()
-    got = pairwise(x, stats, LAM, gram_in_bf16=bf16)
+    p = pairwise_plan(n, c, kbuild.sm_count(dev.index or 0), splits).splits
+
+    def call(sp=p):
+        return pairwise(x, stats, LAM, gram_in_bf16=bf16, splits=sp)
+
+    got, again = call(), call()
     want = ref.pairwise_distance_ref(x, stats[:, 1], LAM, gram_in_bf16=bf16)
-    tag = f"pairwise({n},{c},normalize={normalize}{_mode(bf16)})"
-    err = check(tag, got, want, 1e-5, 1e-5)
+    want_split = ref.pairwise_split_ref(x, stats, LAM, p, bf16)
+    tag = f"pairwise({n},{c},normalize={normalize}{_mode(bf16)},S={p}" + (
+        ",zero_row)" if zero_row else ")")
+    err = max(check(tag, got, want, 1e-5, 1e-5),
+              check(tag + " vs split plain", got, want_split, 1e-5, 1e-5))
+    bit_equal = bool(torch.equal(got, again))
     require(tag + ": not bit-symmetric", bool(torch.equal(got, got.T)))
     require(tag + ": diagonal not zero",
             bool((torch.diagonal(got) == 0).all()))
-    out = {"case": tag, "max_abs_err": err}
+    require(tag + ": two calls on the same input differ", bit_equal)
+    out = {"case": tag, "splits": p, "max_abs_err": err,
+           "bit_equal": bit_equal}
+    if p > 1:
+        one = call(sp=1)
+        out["unsplit_max_abs_err"] = check(tag + " unsplit (S = 1)", one,
+                                           want, 1e-5, 1e-5)
+        require(tag + " unsplit: not bit-symmetric",
+                bool(torch.equal(one, one.T)))
     if timed:
-        out["ms"] = time_ms(lambda: pairwise(x, stats, LAM,
-                                             gram_in_bf16=bf16))
+        # x stays in L2 below 50 MB, as the selector finds Δb right
+        # after it wrote it; 256×151,936 is 3× the L2
+        out["ms"] = time_ms(call)
         out["plain_ms"] = time_ms(
             lambda: ref.pairwise_distance_ref(x, stats[:, 1], LAM,
                                               gram_in_bf16=bf16))
+        out["device_ms"] = device_ms([call])
+        gemm = lambda: x @ x.T  # noqa: E731
+        out["gemm_ms"] = time_ms(gemm)
+        out["gemm_device_ms"] = device_ms([gemm])
         pairs = n * (n - 1) // 2        # symmetric, zero diagonal
         out["bound_ms"], out["bound_by"] = bound(
-            4 * (n * c + 2 * n + n * n), 2 * c * pairs + 10 * pairs)
-        out["bound_share"] = out["bound_ms"] / out["ms"]
+            4 * (n * c + 2 * n + n * n), 2 * c * pairs + 10 * pairs,
+            kbuild.OPERANDS[bf16])
+        out["bound_share"] = out["bound_ms"] / out["device_ms"]
+        out["library_ms"] = None
     return out
 
 
@@ -548,10 +592,34 @@ def kernel_phase(dev):
     slice_cases["gram_update"] += strip16
     slice_cases["pairwise"] += pair16
     wide = [cached_step_case(50, 5, 10, True, dev)]
+    pair_timed = [pair16[1]]
     for normalize in (False, True):
         wide.append(strip_case(10, 512, 1024, T_SLICE, normalize, dev, True))
         wide.append(pairwise_case(512, 1024, T_SLICE, normalize, dev, True))
         wide.append(cached_step_case(512, 4, 1024, normalize, dev))
+    pair_timed.insert(0, wide[-2])
+    # pairwise at the reference's full-size bench_kernels shape (N 256,
+    # C = qwen2.5-3b's vocabulary); then S forced past the plan, N off
+    # the 64-row tile, C not a multiple of 4 (rows at 4-byte offsets,
+    # copied value by value), empty slices (S > chunks) and a zero row
+    for bf16 in (False, True):
+        pair_timed.append(pairwise_case(256, 151_936, T_SLICE, True, dev,
+                                        True, bf16=bf16))
+        wide.append(pair_timed[-1])
+        for n in (50, 65, 257):
+            wide.append(pairwise_case(n, 4099, T_SLICE, True, dev,
+                                      bf16=bf16, zero_row=True))
+        for splits in (1, 3, 8):
+            wide.append(pairwise_case(65, 4099, T_SLICE, True, dev,
+                                      bf16=bf16, splits=splits))
+        wide.append(pairwise_case(50, 10, T_SLICE, True, dev, bf16=bf16,
+                                  splits=8))
+        # the same through the TMA path (C a multiple of 4): N off the
+        # tile, and 8 of 40 slices empty
+        wide.append(pairwise_case(257, 4096, T_SLICE, True, dev, bf16=bf16,
+                                  zero_row=True))
+        wide.append(pairwise_case(64, 1024, T_SLICE, True, dev, bf16=bf16,
+                                  splits=40))
     # fused_stats at vocab width (qwen2.5-3b's C = 151,936): 64 rows, and
     # the LM fine-tune's K = 2 refreshed rows at T = 0.01; then P forced
     # past the plan at small C (C not a multiple of 4: rows at 4-byte
@@ -581,7 +649,7 @@ def kernel_phase(dev):
     emit({"phase": "kernels", "slice_shapes": slice_cases,
           "wider_shapes": wide,
           "seconds": time.perf_counter() - t0})
-    return slice_cases, path_strip, modes, stats_timed
+    return slice_cases, path_strip, modes, stats_timed, pair_timed
 
 
 # ---------------------------------------------------------------------------
@@ -1490,7 +1558,8 @@ def main() -> int:
                            if "registers" in ln or "spill" in ln]
                     for name, log in reports.items()}})
 
-    slice_cases, path_strip, modes, stats_timed = kernel_phase(dev)
+    slice_cases, path_strip, modes, stats_timed, pair_timed = kernel_phase(
+        dev)
     server, hist, launches = slice_phase(dev)
     scratch_launches = from_scratch_phase(server, hist, dev)
     del server
@@ -1538,12 +1607,15 @@ def main() -> int:
     # the split plan and device time at each timed case of the stats
     # kernels and the decode kernel; the stats kernels also at vocab
     # width (fused_stats: 64 and 2 rows; hetero_entropy: bf16)
-    for kern in (kernels[0], kernels[3], kernels[4]):
+    for kern in (kernels[0], kernels[2], kernels[3], kernels[4]):
         kern.update({key: timed_case[kern["name"]][key]
                      for key in ("splits", "device_ms", "bound_share")})
     keys = ("case", "splits", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_share")
     kernels[0]["wide"] = [{key: c[key] for key in keys} for c in stats_timed]
+    # pairwise at 512×512×1024 and 256×151,936, beside x @ x.T
+    kernels[2]["wide"] = [{key: c[key] for key in keys + (
+        "bound_by", "gemm_device_ms", "max_abs_err")} for c in pair_timed]
     kernels[3]["wide"] = [{key: serve_cases["hetero_entropy"][3][key]
                            for key in keys}]
     # the strip kernel per epilogue: its launches on its own path and

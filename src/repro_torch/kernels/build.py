@@ -39,7 +39,8 @@ SIGNATURES = {
     "gram_update": ("gram_strip_launch",
                     (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
                      _I, _P)),
-    "pairwise": ("pairwise_launch", (_P, _P, _P, _I, _I, _F, _F, _I, _P)),
+    "pairwise": ("pairwise_launch",
+                 (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P)),
     "hetero_entropy": ("entropy_launch", (_P, _P, _I, _I, _I, _F, _I, _P)),
     "decode_attention": ("decode_attention_launch",
                          (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -1,7 +1,6 @@
 // Shared pieces of the two Gram kernels (gram_update.cu, pairwise.cu):
-// the operand mode, the ranges of the F-slices, the tile loop of
-// pairwise and the distance epilogues (Eq. 9, the angle alone, the
-// Euclidean distance).
+// the operand mode, the ranges of the F-slices, the Kahan step and the
+// distance epilogues (Eq. 9, the angle alone, the Euclidean distance).
 //
 // Sum order.  Every dot product over C is summed in an order that
 // depends on the column index alone, never on which operand is the row
@@ -14,13 +13,14 @@
 // sums merged in increasing slice order, again with Kahan compensation.
 // fmaf's two factors commute exactly, so <a_u, a_v> and <a_v, a_u> are
 // bit-equal and so are the distances built from them: the K x K block
-// of the scattered cache and the pairwise matrix are exactly symmetric.
-// No atomics enter a sum.
+// of the scattered cache is exactly symmetric (pairwise.cu computes each
+// unordered pair once and writes it to both places).  No atomics enter
+// a sum.
 //
 // Operand mode.  With BF16 every operand value is rounded to bf16
 // (round to nearest even, as the reference's astype(jnp.bfloat16)) as
-// it is loaded from the f32 buffer and widened back to f32; the sums
-// stay f32.  A product of two bf16 values is exact in f32, so the
+// it is loaded from the f32 buffer (pairwise.cu: as it is staged, for
+// the tensor cores); the sums stay f32.  A product of two bf16 values is exact in f32, so the
 // kernels and their plain versions differ only in the order of the
 // sums.  The norms and Ĥ in the stats are the f32 rows' own.
 #pragma once
@@ -30,8 +30,6 @@
 
 namespace gram {
 
-constexpr int TM = 16;  // pairwise: output rows per block (threadIdx.y)
-constexpr int TN = 16;  // pairwise: output columns per block (threadIdx.x)
 constexpr int TC = 32;  // columns of C per chunk; a slice is whole chunks
 
 // Eq. 9 clip bounds, the f32 values of the reference's python floats.
@@ -65,48 +63,6 @@ __device__ __forceinline__ void kahan_add(float& acc, float& comp, float v) {
   const float t = __fadd_rn(acc, y);
   comp = __fsub_rn(__fsub_rn(t, acc), y);
   acc = t;
-}
-
-// Pairwise's tile loop: one block of TN x TM threads computes a TM x TN
-// tile of A·Bᵀ, <a[row0 + threadIdx.y], b[col0 + threadIdx.x]> over c in
-// [0, c).  Row and column tiles are staged through shared memory one
-// chunk of TC columns at a time; each thread sums a chunk in one f32
-// register, one fmaf per column in increasing c, and adds the chunk's
-// sum into its total with Kahan compensation.  a is (ra, c) and b is
-// (rb, c), both row-major f32.  Out-of-range rows read zeros; their
-// results are discarded by the caller.
-template <bool BF16>
-__device__ inline float tile_dot(const float* __restrict__ a, int ra,
-                                 const float* __restrict__ b, int rb,
-                                 int c, int row0, int col0) {
-  __shared__ float as[TM][TC + 1];
-  __shared__ float bs[TN][TC + 1];
-  const int tid = threadIdx.y * TN + threadIdx.x;
-  float acc = 0.0f, comp = 0.0f;  // Kahan sum of the chunks' sums
-  for (int c0 = 0; c0 < c; c0 += TC) {
-    // neighbouring threads read neighbouring columns of one row
-    for (int e = tid; e < TM * TC; e += TM * TN) {
-      const int r = e / TC, cc = e % TC;
-      const int gr = row0 + r, gc = c0 + cc;
-      as[r][cc] = (gr < ra && gc < c) ? operand<BF16>(a[(size_t)gr * c + gc])
-                                      : 0.0f;
-    }
-    for (int e = tid; e < TN * TC; e += TM * TN) {
-      const int r = e / TC, cc = e % TC;
-      const int gr = col0 + r, gc = c0 + cc;
-      bs[r][cc] = (gr < rb && gc < c) ? operand<BF16>(b[(size_t)gr * c + gc])
-                                      : 0.0f;
-    }
-    __syncthreads();
-    const int lim = min(TC, c - c0);
-    float part = 0.0f;
-    for (int kk = 0; kk < lim; ++kk) {
-      part = fmaf(as[threadIdx.y][kk], bs[threadIdx.x][kk], part);
-    }
-    kahan_add(acc, comp, part);
-    __syncthreads();
-  }
-  return acc;
 }
 
 // arccos(clip(dot / (max(|a|, eps) max(|b|, eps)))), zeroed on the

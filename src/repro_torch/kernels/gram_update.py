@@ -48,7 +48,7 @@ EPILOGUES = ("arccos", "cosine", "l2")
 
 #: the kernel's tiling (csrc/gram_update.cu: KT, JT) and its slices'
 #: unit (csrc/gram_tile.cuh: TC)
-TILE_ROWS, TILE_COLS, CHUNK = 8, 16, 32
+TILE_ROWS, TILE_COLS, CHUNK = 8, 16, ref.GRAM_CHUNK
 #: blocks an SM the split aims at (the kernel's registers let two
 #: blocks share an SM, so one wave), and the fewest chunks a slice
 #: keeps (two staged steps of 128 columns)
@@ -70,10 +70,7 @@ def slice_ranges(c: int, splits: int) -> list:
     """The kernel's slices of [0, c): [(begin, end)] per slice, whole
     chunks of :data:`CHUNK` columns, the last cut at c
     (csrc/gram_tile.cuh: slice_range)."""
-    nch = -(-c // CHUNK)
-    return [(nch * s // splits * CHUNK,
-             min(nch * (s + 1) // splits * CHUNK, c))
-            for s in range(splits)]
+    return ref.gram_slice_ranges(c, splits)
 
 
 def gram_strip(rows: torch.Tensor, x: torch.Tensor,

@@ -165,6 +165,54 @@ def pairwise_distance_ref(updates: torch.Tensor, entropies: torch.Tensor,
     return ang + lam * torch.abs(h[:, None] - h[None, :])
 
 
+#: the Gram kernels' slices of C are whole GRAM_CHUNK-column chunks
+#: (csrc/gram_tile.cuh: TC, slice_range)
+GRAM_CHUNK = 32
+
+
+def gram_slice_ranges(c: int, splits: int) -> list:
+    """The Gram kernels' slices of [0, c): [(begin, end)] per slice,
+    slice s the chunks [nch·s/S, nch·(s+1)/S) of nch = ceil(c / 32),
+    the last cut at c; a slice is empty where S > nch."""
+    nch = -(-c // GRAM_CHUNK)
+    return [(nch * s // splits * GRAM_CHUNK,
+             min(nch * (s + 1) // splits * GRAM_CHUNK, c))
+            for s in range(splits)]
+
+
+def kahan_add(acc: torch.Tensor, comp: torch.Tensor, v: torch.Tensor):
+    """One Kahan step, (acc, comp) += v elementwise, each operation
+    rounded on its own as ``gram_tile.cuh: kahan_add``."""
+    y = v - comp
+    t = acc + y
+    return t, (t - acc) - y
+
+
+def pairwise_split_ref(x: torch.Tensor, stats: torch.Tensor, lam: float,
+                       splits: int, gram_in_bf16: bool = False,
+                       eps: float = 1e-8) -> torch.Tensor:
+    """Eq. 9 matrix in the pairwise kernel's sum structure: one Gram
+    product per slice of :func:`gram_slice_ranges`, the slices added
+    in slice order with Kahan compensation, divided by the norms after
+    the dot product, each unordered pair computed once (the upper
+    triangle mirrored) and the diagonal 0.  x (N, C), stats (N, 2) =
+    [norm, Ĥ] -> (N, N) f32; the same result as
+    :func:`pairwise_distance_ref` to f32 rounding."""
+    xo = gram_operand(x.float(), gram_in_bf16)
+    n = xo.shape[0]
+    acc = torch.zeros((n, n), dtype=torch.float32, device=xo.device)
+    comp = torch.zeros_like(acc)
+    for lo, hi in gram_slice_ranges(xo.shape[1], splits):
+        part = xo[:, lo:hi] @ xo[:, lo:hi].T
+        acc, comp = kahan_add(acc, comp, part)
+    nrm = torch.clamp(stats[:, 0].float(), min=eps)
+    cos = torch.clamp(acc / (nrm[:, None] * nrm[None, :]), COS_LO, COS_HI)
+    h = stats[:, 1].float()
+    d = torch.triu(torch.arccos(cos) + lam * torch.abs(h[:, None] -
+                                                       h[None, :]), 1)
+    return d + d.T
+
+
 def selection_step_ref(updates: torch.Tensor, temperature: float,
                        lam: float, normalize: bool = False,
                        gram_in_bf16: bool = False):

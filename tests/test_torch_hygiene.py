@@ -24,7 +24,7 @@ PORT = ROOT / "src" / "repro_torch"
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
         ROOT / "tools" / f"{name}_profile.py"
-        for name in ("strip", "decode", "stats")]
+        for name in ("strip", "decode", "stats", "pairwise")]
 
 
 def _imported_modules(path: Path):
@@ -200,6 +200,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_at_launch():
         pairwise(x, torch.ones(4, 2), 10.0)
     with pytest.raises(ValueError, match="CUDA"):
         pairwise(x, torch.ones(4, 2), 10.0, gram_in_bf16=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        pairwise(x, torch.ones(4, 2), 10.0, splits=3)
     for epilogue in ("arccos", "cosine", "l2"):
         with pytest.raises(ValueError, match="CUDA"):
             gram_strip(x[:2], x, torch.ones(2, 2), torch.ones(4, 2),
@@ -269,6 +271,30 @@ def test_gram_in_bf16_entry_points_raise_without_cuda(no_cuda):
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_signatures_match_the_c_entries():
+    """Each library's ctypes binding (``build.SIGNATURES``) names the C
+    entry that its source defines, with one argument type a parameter
+    in the order the source declares them: pointers and the stream as
+    ``c_void_p``, ``int`` as ``c_int``, ``float`` as ``c_float``."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import build
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+    for name, (entry, argtypes) in build.SIGNATURES.items():
+        src = (build.CSRC / f"{name}.cu").read_text()
+        found = re.search(r'extern "C" int (\w+)\(([^)]*)\)', src)
+        assert found and found.group(1) == entry, name
+        params = [re.sub(r"\bconst\b|\s+", "", p.rsplit(" ", 1)[0]
+                         if "*" not in p else p.split("*")[0] + "*")
+                  for p in found.group(2).split(",")]
+        assert [kinds[p] for p in params] == list(argtypes), name
+    # pairwise: x, stats, out, workspace, counters, n, c, splits, lam,
+    # eps, bf16, stream
+    assert len(build.SIGNATURES["pairwise"][1]) == 12
 
 
 def test_launch_counts_by_variant(monkeypatch):

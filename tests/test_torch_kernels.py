@@ -25,7 +25,8 @@ from repro.kernels.gram_update import (cached_feature_step_pallas,
                                        cached_selection_step_pallas,
                                        gram_row_update_pallas)
 from repro.kernels.hetero_entropy import entropy_pallas
-from repro.kernels.pairwise import hics_selection_step_pallas
+from repro.kernels.pairwise import (hics_selection_step_pallas,
+                                    pairwise_distance_pallas)
 from repro_torch.kernels import gram_update as gu
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (decode_splits,
@@ -34,6 +35,7 @@ from repro_torch.kernels.fused_stats import fused_stats, stats_splits
 from repro_torch.kernels.gram_update import (cached_feature_step,
                                              cached_selection_step,
                                              gram_row_update)
+from repro_torch.kernels import pairwise as pw
 from repro_torch.kernels.pairwise import hics_selection_step
 from torch_parity import each
 
@@ -699,6 +701,100 @@ def test_strip_splits_and_slice_ranges():
     assert gu.strip_splits(5, 50, 158_570, sms=264) > gu.strip_splits(
         5, 50, 158_570)
     assert gu.strip_splits(5, 50, 8 * 32 * 3) == 3
+
+
+# ---------------------------------------------------------------------------
+# the pairwise kernel's split: each 64×64 tile of the upper triangle
+# sums C in S slices of whole 32-column chunks, merged in slice order
+# with Kahan compensation (``ref.pairwise_split_ref``), at forced S
+# against the Pallas kernel in interpret mode and the unsplit plain
+# version, in both operand modes, at the tolerances above (distances
+# 1e-5 + 1e-5 relative at T = 0.63): only the order of the sums differs.
+# ---------------------------------------------------------------------------
+
+PAIRWISE_SPLITS = (1, 3, 8)
+
+
+def test_pairwise_split_plain_vs_pallas():
+    each(_pairwise_split_case, SHAPES + [(65, 4099)], [False, True],
+         [False])
+    each(_pairwise_split_case, [(65, 4099)], [False, True], [True])
+
+
+def _pairwise_split_case(shape, bf16, zero_row):
+    n, c = shape
+    x = _x(n, c, seed=21) * 2.5
+    if zero_row:
+        x[3] = 0.0          # cosines 0: distances π/2 + λ|ΔĤ|
+    tx = torch.tensor(x)
+    norms = torch.linalg.vector_norm(tx, dim=-1)
+    ent = ref.row_entropy(tx, 0.63, True)
+    stats = torch.stack([norms, ent], dim=-1)
+    pallas = pairwise_distance_pallas(
+        jnp.asarray(x), jnp.asarray(norms.numpy()), jnp.asarray(ent.numpy()),
+        lam=LAM, gram_in_bf16=bf16, interpret=True)
+    plain = ref.pairwise_distance_ref(tx, ent, LAM, gram_in_bf16=bf16)
+    for splits in PAIRWISE_SPLITS:
+        got = ref.pairwise_split_ref(tx, stats, LAM, splits, bf16)
+        _close_dist(got, pallas, 1e-5)
+        _close_dist(got, plain, 1e-5)
+        assert torch.equal(got, got.T)
+        assert torch.all(torch.diagonal(got) == 0.0)
+        if zero_row:
+            want = np.pi / 2 + LAM * np.abs(ent[3].item() - ent.numpy())
+            want[3] = 0.0
+            _close(got[3], want, 1e-5, rtol=1e-5)
+    if bf16:        # the operands really were rounded
+        assert not torch.equal(got, ref.pairwise_split_ref(tx, stats, LAM,
+                                                           splits))
+
+
+def test_pairwise_plan_covers_each_pair_and_column_once():
+    """The plan's tiles are the upper triangle's 64×64 tiles, row-major,
+    each unordered pair of row blocks once; its slices tile [0, C) in
+    order on whole 32-column chunks (empty where S exceeds the chunks);
+    S is 1 at the slice's 50×10 and fills the card in one wave at the
+    reference's 256×151,936."""
+    for n, c in [(50, 10), (65, 4099), (256, 151_936), (512, 1024),
+                 (257, 1000), (1, 1), (64, 64), (128, 33), (3, 0)]:
+        plan = pw.pairwise_plan(n, c)
+        nb = -(-n // pw.TILE)
+        assert plan.tiles == sorted(plan.tiles)
+        assert plan.tiles == [(i, j) for i in range(nb)
+                              for j in range(nb) if i <= j]
+        covered = np.zeros((nb * pw.TILE,) * 2, int)
+        for bi, bj in plan.tiles:
+            covered[bi * 64:(bi + 1) * 64, bj * 64:(bj + 1) * 64] += 1
+        upper = np.triu(np.ones_like(covered))
+        # each pair (i <= j) of every row block lies in one tile
+        assert np.all(covered[upper == 1] >= 1)
+        pairs = {(min(i, j), max(i, j)) for i, j in plan.tiles}
+        assert len(pairs) == len(plan.tiles) == nb * (nb + 1) // 2
+        assert 1 <= plan.splits <= pw.MAX_SPLITS
+        assert len(plan.slices) == plan.splits
+        assert plan.slices[0][0] == 0 and plan.slices[-1][1] == c
+        for (b0, e0), (b1, _) in zip(plan.slices, plan.slices[1:]):
+            assert e0 == b1
+        for b, e in plan.slices:
+            assert b % ref.GRAM_CHUNK == 0 and b <= e
+            assert e == c or e % ref.GRAM_CHUNK == 0
+        if plan.splits > 1:    # a slice keeps its MIN_SLICE_CHUNKS
+            assert all(e - b >= pw.MIN_SLICE_CHUNKS * ref.GRAM_CHUNK
+                       for b, e in plan.slices[:-1])
+        assert len(plan.tiles) * plan.splits <= max(
+            len(plan.tiles), pw.RESIDENT * 132)
+    assert pw.pairwise_plan(50, 10).splits == 1
+    big = pw.pairwise_plan(256, 151_936)
+    assert 2 * 132 <= len(big.tiles) * big.splits <= pw.RESIDENT * 132
+    assert pw.pairwise_plan(256, 151_936, sms=264).splits > big.splits
+    forced = pw.pairwise_plan(50, 10, splits=8)
+    assert forced.splits == 8
+    assert sum(b == e for b, e in forced.slices) == 7       # empty slices
+    assert gu.slice_ranges(4099, 3) == pw.pairwise_plan(
+        65, 4099, splits=3).slices
+    for bad in (0, pw.MAX_SPLITS + 1):
+        with pytest.raises(ValueError, match="splits"):
+            pw.pairwise_plan(50, 10, splits=bad)
 
 
 # ---------------------------------------------------------------------------
