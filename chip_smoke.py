@@ -27,7 +27,15 @@ of each against the plain select on the CPU.  Phase ``hics_bf16``
 runs the slice's spec with ``gram_in_bf16=True`` (bf16 Gram operands,
 f32 sums): its cache against the plain bf16 build and the pairwise
 kernel, one more select against the plain bf16 select on the CPU, and
-an ``incremental=False`` run (pairwise in bf16).  Then the serving
+an ``incremental=False`` run (pairwise in bf16).  Phase
+``graph_rounds`` runs those nine runs again through the scanned round
+driver (``jit_rounds=True``: one CUDA graph a round): no synchronizing
+call in an eager round of the round step, one capture each, the host
+loop's participants and, for HiCS, its cache bit for bit, the kernels'
+launches on the graph path, rounds/s beside the host loop's, device ms
+a replay and the device's busy share of the HiCS run's segments
+(``python3 chip_smoke.py graph_rounds`` runs that phase alone, with
+host-loop runs of its own).  Then the serving
 slice: the two LM kernels (hetero_entropy, decode_attention) against
 their plain versions, the entropy kernel's path through
 ``ops.estimate_entropies``, qwen2.5-3b at full width and depth through
@@ -747,6 +755,18 @@ def _cpu(tup):
     return type(tup)(*(a.cpu() for a in tup))
 
 
+def host_record(hist, state=None) -> dict:
+    """What phase ``graph_rounds`` holds a host-loop run's graph twin
+    to: its participants, train loss and rounds/s, and an incremental
+    HiCS run's final cache."""
+    rec = {"selected": hist["selected"][:ROUNDS],
+           "train_loss": hist["train_loss"][:ROUNDS],
+           "rounds_per_s": hist["rounds_per_s"]}
+    if state is not None and state.dist_cache.numel():
+        rec["cache"] = (state.dist_cache, state.row_stats)
+    return rec
+
+
 def slice_phase(dev):
     server, _ = build(SPEC, device=dev)
     kbuild.reset_launches()
@@ -856,7 +876,7 @@ def from_scratch_phase(server, hist, dev):
           "same_participants_as_incremental":
               hist2["selected"] == hist["selected"],
           "selected": hist2["selected"]})
-    return launches
+    return launches, host_record(hist2)
 
 
 # ---------------------------------------------------------------------------
@@ -947,6 +967,7 @@ def hics_bf16_phase(dev):
     }
     select = bf16_select_vs_plain(server)
     split = round_split(server)
+    records = {"hics-bf16": host_record(hist, server.state)}
     del server
 
     scratch = dataclasses.replace(
@@ -972,7 +993,8 @@ def hics_bf16_phase(dev):
                            "selected": hist2["selected"],
                            "same_participants_as_incremental":
                                hist2["selected"] == hist["selected"]}})
-    return variants, variants2
+    records["hics-bf16-scratch"] = host_record(hist2)
+    return variants, variants2, records
 
 
 # ---------------------------------------------------------------------------
@@ -1106,21 +1128,299 @@ def baseline_run(label: str, selector: str, kw, dev) -> dict:
         out["cache_vs_plain"] = feature_cache_check(server, metric, dev)
     out["select_vs_plain"] = baseline_select_vs_plain(server, label,
                                                       selector, kw)
-    return out
+    return out, host_record(hist, server.state)
 
 
 def baselines_phase(dev):
     """Each baseline run with the launch counts set to 0 just before it
     and read just after; returns the epilogue counts of the cs and
-    divfl-selected runs."""
+    divfl-selected runs and every run's :func:`host_record`."""
     t0 = time.perf_counter()
-    runs = [baseline_run(label, sel, kw, dev)
-            for label, sel, kw in BASELINES]
+    runs, records = [], {}
+    for label, sel, kw in BASELINES:
+        out, records[label] = baseline_run(label, sel, kw, dev)
+        runs.append(out)
     emit({"phase": "baselines", "runs": runs,
           "seconds": time.perf_counter() - t0})
     by_run = {r["run"]: r["gram_update_epilogues"] for r in runs}
     return {"cosine": by_run["cs"]["cosine"],
-            "l2": by_run["divfl-selected"]["l2"]}
+            "l2": by_run["divfl-selected"]["l2"]}, records
+
+
+# ---------------------------------------------------------------------------
+# the scanned round driver: one CUDA graph a round, every selector
+# ---------------------------------------------------------------------------
+
+#: the nine host-loop runs of the earlier phases, by label: (selector,
+#: selector_kw)
+GRAPH_RUNS = [("hics", "hics", SELECTOR_KW),
+              ("hics-scratch", "hics", dict(SELECTOR_KW, incremental=False)),
+              ("hics-bf16", "hics", BF16_KW),
+              ("hics-bf16-scratch", "hics",
+               dict(BF16_KW, incremental=False)),
+              *BASELINES]
+
+
+def index_syncs(dev) -> dict:
+    """Whether each way of reading one element by a 0-d device index
+    synchronizes with the host: the forms the selectors used before
+    (``d[i, j]``, ``d[i]``, ``d[:, j]``) and the gathers that replace
+    them, each under ``torch.cuda.set_sync_debug_mode("error")``, where
+    a synchronizing call raises."""
+    d = torch.rand(50, 50, device=dev)
+    flat = torch.argmin(d)
+    i, j = flat // 50, flat % 50
+    forms = {"d[i, j]": lambda: d[i, j], "d[i]": lambda: d[i],
+             "d[:, j]": lambda: d[:, j],
+             "index_select": lambda: d.index_select(0, i[None]),
+             "flat index_select": lambda: d.view(-1).index_select(
+                 0, flat[None])}
+    out = {}
+    torch.cuda.synchronize()
+    for name, fn in forms.items():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            out[name] = False
+        except RuntimeError:
+            out[name] = True
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for name in ("index_select", "flat index_select"):
+        require(f"graph_rounds: {name} synchronizes", not out[name])
+    return out
+
+
+def round_step_syncs(server):
+    """One eager round of the server's round step from its initial
+    state under ``set_sync_debug_mode("error")``: None, or the error of
+    the first call that synchronized.  The server's generator is put
+    back, so the run that follows draws what it would have."""
+    gen_state = server.gen.get_state()
+    rd = server.draw_round(0)
+    server.gen.set_state(gen_state)
+    carry = (server.params, server.state,
+             torch.zeros((), dtype=torch.int32, device=server.device))
+    step = server._make_round_step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(carry, rd)
+        return None
+    except RuntimeError as e:
+        return str(e)[:300]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+def replay_ms(server, iters: int = 10) -> float:
+    """Device ms of one replay of the server's round graph (CUDA events
+    over ``iters`` back-to-back replays after two warm ones; each
+    replay advances the graph's own copy of the state)."""
+    graph = server._graph.graph
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _union_us(spans) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def busy_shares(server) -> dict:
+    """The device's busy share of each segment of one more run through
+    the server's graph: under ``torch.profiler`` (CPU and CUDA
+    activity), the union of the CUDA spans (kernels, copies) inside each
+    ``fed/scan_segment`` range over the range's length, the draws and
+    the one read of the outputs included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        server.run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    segs = [(e.time_range.start, e.time_range.end) for e in events
+            if e.name.startswith("fed/scan_segment")
+            and e.device_type == DeviceType.CPU]
+    # device spans: kernels and copies, not the ranges' own annotations
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if e.device_type == DeviceType.CUDA
+             and not e.name.startswith("fed/")
+             and not getattr(e, "is_user_annotation", False)]
+    out, by_name = [], {}
+    for a, b in sorted(segs):
+        inside = [(max(x, a), min(y, b)) for x, y, _ in spans
+                  if y > a and x < b]
+        out.append({"segment_ms": (b - a) / 1e3,
+                    "busy_ms": _union_us(inside) / 1e3,
+                    "busy_share": _union_us(inside) / (b - a)
+                    if b > a else None, "cuda_spans": len(inside)})
+        for x, y, name in spans:
+            if a <= x < b:
+                tot = by_name.setdefault(name[:80], [0.0, 0])
+                tot[0] += (y - x) / 1e3
+                tot[1] += 1
+    rounds = sum(server.history["segment_rounds"][-len(segs):]) or 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"method": "torch.profiler: union of CUDA spans (kernels, "
+                      "copies) inside each CPU fed/scan_segment range / "
+                      "the range",
+            "segments": out,
+            "device_ms_per_round": sum(v[0] for v in by_name.values())
+            / rounds,
+            "kernels_per_round": sum(v[1] for v in by_name.values())
+            / rounds,
+            "top_per_round": [{"name": k, "ms": v[0] / rounds,
+                               "count": v[1] / rounds} for k, v in top]}
+
+
+def host_busy_share(spec, dev) -> dict:
+    """The device's busy share of a host-loop run of ``spec``: under
+    ``torch.profiler`` with CUDA activity only, the union of the CUDA
+    spans over the host-clock wall of ``run()`` (tracing adds a few µs
+    of host time to each launch, so this reads low)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    server, _ = build(spec, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    busy = _union_us(spans) / 1e6
+    return {"method": "torch.profiler (CUDA only): union of CUDA spans "
+                      "over the run's host wall",
+            "wall_s": wall, "busy_s": busy,
+            "busy_share": busy / wall if spans else None,
+            "cuda_spans": len(spans)}
+
+
+def graph_run(label: str, selector: str, kw, host: dict, dev) -> dict:
+    """The run of ``host`` again with ``jit_rounds=True``: no
+    synchronizing call in an eager round of its round step, one
+    capture, the host loop's participants (DivFL's ideal mode to
+    ``DIVFL_IDEAL_CARD_HORIZON``), an incremental HiCS cache bit-equal
+    to the host run's, its launches on the graph path (counts set to 0
+    just before the run, read just after), then a second run through
+    the same graph for rounds/s without the capture, and the device
+    time of a replay."""
+    spec = dataclasses.replace(SPEC, selector=selector, selector_kw=kw,
+                               jit_rounds=True)
+    server, _ = build(spec, device=dev)
+    tag = f"graph_rounds {label}"
+    syncs = round_step_syncs(server)
+    require(f"{tag}: the round step synchronized: {syncs}", syncs is None)
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    hist = server.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, variants = dict(kbuild.launches), _variants()
+    selected = hist["selected"][:ROUNDS]
+    agree = next((t for t, (a, b) in enumerate(zip(selected,
+                                                   host["selected"]))
+                  if a != b), ROUNDS)
+    horizon = DIVFL_IDEAL_CARD_HORIZON if label == "divfl" else ROUNDS
+    require(f"{tag}: {server.captures} captures", server.captures == 1)
+    require(f"{tag}: participants differ from the host loop's from round "
+            f"{agree}", agree >= horizon)
+    require(f"{tag}: non-finite train loss",
+            bool(np.isfinite(hist["train_loss"]).all()))
+    require(f"{tag}: bad test accuracy",
+            all(0.0 <= a <= 1.0 for a in hist["test_acc"]))
+    out = {"run": label, "selector": selector, "selector_kw": kw,
+           "rounds": ROUNDS, "seconds": seconds, "syncs": syncs,
+           "captures": server.captures,
+           "segment_rounds": list(hist["segment_rounds"]),
+           "segment_wall_s": list(hist["segment_wall_s"]),
+           "rounds_per_s": hist["rounds_per_s"],
+           "rounds_per_s_after_capture": sum(hist["segment_rounds"][1:])
+           / sum(hist["segment_wall_s"][1:]),
+           "host_rounds_per_s": host["rounds_per_s"],
+           "same_participants_rounds": agree,
+           "train_loss_max_abs_diff": float(np.max(np.abs(
+               np.asarray(hist["train_loss"]) - host["train_loss"]))),
+           "launches": launches, "launches_by_variant": variants,
+           "captured_launches": server._graph.launches["launches"]}
+    if "cache" in host:
+        st = server.state
+        same = {"dist_cache": bool(torch.equal(st.dist_cache,
+                                               host["cache"][0])),
+                "row_stats": bool(torch.equal(st.row_stats,
+                                              host["cache"][1]))}
+        require(f"{tag}: cache not bit-equal to the host run's {same}",
+                all(same.values()))
+        out["cache_bit_equal"] = same
+    server.run()                               # the same graph again
+    torch.cuda.synchronize()
+    require(f"{tag}: a second run captured again", server.captures == 1)
+    second = server.history
+    out["second_run_rounds_per_s"] = (sum(second["segment_rounds"][3:])
+                                      / sum(second["segment_wall_s"][3:]))
+    out["replay_ms"] = replay_ms(server)
+    if label == "hics":
+        out["busy"] = busy_shares(server)
+        out["host_busy"] = host_busy_share(
+            dataclasses.replace(spec, jit_rounds=False), dev)
+    return out
+
+
+def graph_rounds_phase(dev, host_runs: dict):
+    """Each of :data:`GRAPH_RUNS` through the scanned driver, held to
+    the earlier phases' host-loop run (made here when the phase runs
+    alone).  Returns the launches on the graph path, by kernel and by
+    variant, summed over the runs."""
+    t0 = time.perf_counter()
+    probe = index_syncs(dev)
+    runs = []
+    for label, sel, kw in GRAPH_RUNS:
+        host = host_runs.get(label)
+        if host is None:
+            spec = dataclasses.replace(SPEC, selector=sel, selector_kw=kw)
+            server, _ = build(spec, device=dev)
+            host = host_record(server.run(), server.state)
+            del server
+        runs.append(graph_run(label, sel, kw, host, dev))
+        torch.cuda.empty_cache()
+    totals = {name: sum(r["launches"][name] for r in runs)
+              for name in kbuild.launches}
+    by_variant = {name: {axis: {v: sum(r["launches_by_variant"][name][axis][v]
+                                       for r in runs) for v in counts}
+                         for axis, counts in axes.items()}
+                  for name, axes in kbuild.variant_launches.items()}
+    for name in ("fused_stats", "gram_update", "pairwise"):
+        require(f"graph_rounds: {name} was not launched on the graph path",
+                totals[name] > 0)
+    for epi, n in by_variant["gram_update"]["epilogue"].items():
+        require(f"graph_rounds: no {epi} strip on the graph path", n > 0)
+    for name in ("gram_update", "pairwise"):
+        for mode, n in by_variant[name]["operands"].items():
+            require(f"graph_rounds: no {mode} {name} on the graph path",
+                    n > 0)
+    emit({"phase": "graph_rounds", "index_syncs": probe, "runs": runs,
+          "launches": totals, "launches_by_variant": by_variant,
+          "seconds": time.perf_counter() - t0})
+    return totals, by_variant
 
 
 # ---------------------------------------------------------------------------
@@ -1537,9 +1837,12 @@ def _teacher_forced(api, params, prompt, gen, forced, dev="cpu"):
     return out, torch.stack(picks, dim=1)
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if argv not in ([], ["graph_rounds"]):
+        print("usage: chip_smoke.py [graph_rounds]", file=sys.stderr)
         return 2
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1547,6 +1850,7 @@ def main() -> int:
         check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
+    started = time.perf_counter()
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "device": torch.cuda.get_device_name(0),
@@ -1558,13 +1862,24 @@ def main() -> int:
                            if "registers" in ln or "spill" in ln]
                     for name, log in reports.items()}})
 
+    if argv == ["graph_rounds"]:       # the phase alone, its own host runs
+        graph_rounds_phase(dev, {})
+        for f in failures:
+            print("FAILED:", f, file=sys.stderr)
+        return 1 if failures else 0
+
     slice_cases, path_strip, modes, stats_timed, pair_timed = kernel_phase(
         dev)
     server, hist, launches = slice_phase(dev)
-    scratch_launches = from_scratch_phase(server, hist, dev)
+    host_runs = {"hics": host_record(hist, server.state)}
+    scratch_launches, host_runs["hics-scratch"] = from_scratch_phase(
+        server, hist, dev)
     del server
-    bf16_variants, bf16_scratch_variants = hics_bf16_phase(dev)
-    feature_launches = baselines_phase(dev)
+    bf16_variants, bf16_scratch_variants, records = hics_bf16_phase(dev)
+    host_runs.update(records)
+    feature_launches, records = baselines_phase(dev)
+    host_runs.update(records)
+    graph_totals, graph_variants = graph_rounds_phase(dev, host_runs)
     serve_cases, entropy_launches = serve_kernels_phase(dev)
     res, serve_launches = serve_phase(dev)
     serve_parity_phase(res, dev)
@@ -1639,6 +1954,13 @@ def main() -> int:
             require(f"{kern['name']}: no {mode} launch on its path", n > 0)
     for epi, n in by_epilogue.items():
         require(f"gram_update: no {epi} launch on its path", n > 0)
+    # the launches of phase graph_rounds' nine runs (one eager warm-up
+    # round each, then the captured launches times the replays)
+    for kern in kernels:
+        kern["launches_graph"] = graph_totals[kern["name"]]
+        if kern["name"] in graph_variants:
+            kern["launches_graph_by_variant"] = graph_variants[kern["name"]]
+    emit({"phase": "total", "seconds": time.perf_counter() - started})
     emit({"kernels": kernels})
     if failures:
         for f in failures:
@@ -1651,4 +1973,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -6,7 +6,8 @@ Lance–Williams merges on squared distances, the flat row-major first-occurrenc
 (``torch.argmin`` returns the first minimal index, as ``jnp.argmin``
 does), the higher index absorbed into the lower, and first-appearance
 relabelling.  N − M merges run as a Python loop of tensor ops with no
-host synchronization inside it.
+host synchronization inside it: every element is gathered by an index
+tensor, never by a 0-d tensor used as a Python index.
 
 The reference's compiled Lance–Williams update rounds as fused
 multiply-adds (XLA contracts ``a·b + c·d`` into ``fma(a, b, c·d)``).
@@ -43,9 +44,10 @@ def agglomerate_device(dist: torch.Tensor, num_clusters: int,
         flat = torch.argmin(d)               # row-major, so i < j
         i, j = flat // n, flat % n
         ij = torch.stack([i, j])
-        dij = d[i, j]
-        ni, nj = sizes[i], sizes[j]
-        di, dj = d[i], d[j]
+        # gathers by index tensor: no scalar crosses to the host
+        dij = d.view(-1).index_select(0, flat[None])[0]
+        ni, nj = sizes.index_select(0, ij).unbind()
+        di, dj = d.index_select(0, ij).unbind()
         new = _fma(-sizes, dij, _fma(ni + sizes, di, (nj + sizes) * dj)
                    ) / (ni + nj + sizes)
         new = new.index_fill(0, ij, torch.inf)

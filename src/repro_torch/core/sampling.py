@@ -19,10 +19,11 @@ import torch
 _NEG_LOG_FLOOR = 1e-30   # log-clip so zero weights become ~ -inf, not nan
 
 
-def anneal_device(gamma0: float, t: int, total_rounds: float,
+def anneal_device(gamma0: float, t, total_rounds: float,
                   device=None) -> torch.Tensor:
-    """γ^t = γ⁰ (1 − t/T) clipped at 0, as an f32 scalar tensor."""
-    tt = torch.tensor(float(t), dtype=torch.float32, device=device)
+    """γ^t = γ⁰ (1 − t/T) clipped at 0, as an f32 scalar tensor, from
+    the round index ``t`` (a 0-d int32 tensor, or an int)."""
+    tt = torch.as_tensor(t, device=device).to(torch.float32)
     frac = tt / max(1.0, float(total_rounds))
     return gamma0 * torch.clamp(1.0 - frac, min=0.0)
 

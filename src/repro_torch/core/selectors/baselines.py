@@ -9,10 +9,13 @@
 
 The port of the reference's ``core/selectors/baselines.py`` (the OO
 shims are not ported).  Each select takes the round's
-:class:`SelectNoise` and reads at most one scalar from the device per
-branch test.  Given the same noise and observations the port picks the
-same ids as the reference: top-k is a stable descending sort, argmax
-returns the first maximum, and DivFL's gains round half to even.
+:class:`SelectNoise`; each branch test is a ``functional.cond``, one
+scalar read from the device in the host loop and none in the scanned
+driver's round step, where both branches run and must stay finite on
+any state (ward on a zero cache, the GP on an empty loss history).
+Given the same noise and observations the port picks the same ids as
+the reference: top-k is a stable descending sort, argmax returns the
+first maximum, and DivFL's gains round half to even.
 
 CS and DivFL keep flattened full updates in an (N, F) feature buffer.
 ``proj_dim`` bounds F by a signed feature hash (Rademacher signs, then
@@ -40,10 +43,11 @@ from repro_torch.core.sampling import (_topk_stable, coverage_sweep_device,
 from repro_torch.core.selectors.functional import (FunctionalSelector,
                                                    Observations,
                                                    SelectNoise,
-                                                   SelectorState,
+                                                   SelectorState, cond,
                                                    init_state, mark_seen,
                                                    not_ported,
                                                    refresh_cache,
+                                                   round_index,
                                                    stale_append)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import COS_HI, COS_LO
@@ -133,14 +137,18 @@ def powd_functional(num_clients: int, num_select: int, total_rounds: int,
         return init_state(n, weights, device=device)
 
     def select(state: SelectorState, t: int, noise: SelectNoise):
-        if not bool((state.losses != 0).any()):
+        def cold():
             ids = weighted_sample_device(noise.cover, state.weights, k)
-            return ids.to(torch.int32), state
-        cand = weighted_sample_device(noise.cover, state.weights, d)
-        in_cand = torch.zeros(n, dtype=torch.bool,
-                              device=device).index_fill(0, cand, True)
-        masked = torch.where(in_cand, state.losses, -torch.inf)
-        return _topk_stable(masked, k).to(torch.int32), state
+            return ids.to(torch.int32)
+
+        def warm():
+            cand = weighted_sample_device(noise.cover, state.weights, d)
+            in_cand = torch.zeros(n, dtype=torch.bool,
+                                  device=device).index_fill(0, cand, True)
+            masked = torch.where(in_cand, state.losses, -torch.inf)
+            return _topk_stable(masked, k).to(torch.int32)
+
+        return cond((state.losses != 0).any(), warm, cold), state
 
     def update(state, t, ids, obs: Observations):
         if obs.losses is None:
@@ -204,20 +212,25 @@ def cs_functional(num_clients: int, num_select: int, total_rounds: int,
             state = refresh_cache(state, lambda st: ops.cached_feature_step(
                 st.feats, st.dist_cache, st.row_stats, st.stale_ids,
                 metric="cosine", device=device))
-        if int(state.unseen_count) > 0:
+
+        def sweep():
             # coverage first, as Alg. 1's first rounds
             ids = coverage_sweep_device(noise.cover, state.seen, k)
-            return ids.to(torch.int32), state
-        ang = (state.dist_cache if incremental
-               else _angular_scratch(state.feats))
-        # exactly symmetric by construction: skip re-symmetrizing
-        labels = agglomerate_device(ang, k, precomputed=True)
-        logw = torch.log(torch.clamp(state.weights, min=_LOG_FLOOR))
-        member = (labels.long()[None, :]
-                  == torch.arange(k, device=device)[:, None])
-        logit = torch.where(member, logw[None, :], -torch.inf)
-        ids = torch.argmax(logit + noise.cluster_pick, dim=1)
-        return ids.to(torch.int32), state
+            return ids.to(torch.int32)
+
+        def clustered():
+            ang = (state.dist_cache if incremental
+                   else _angular_scratch(state.feats))
+            # exactly symmetric by construction: skip re-symmetrizing
+            labels = agglomerate_device(ang, k, precomputed=True)
+            logw = torch.log(torch.clamp(state.weights, min=_LOG_FLOOR))
+            member = (labels.long()[None, :]
+                      == torch.arange(k, device=device)[:, None])
+            logit = torch.where(member, logw[None, :], -torch.inf)
+            ids = torch.argmax(logit + noise.cluster_pick, dim=1)
+            return ids.to(torch.int32)
+
+        return cond(state.unseen_count > 0, sweep, clustered), state
 
     def update(state, t, ids, obs: Observations):
         if obs.full_updates is None:
@@ -261,7 +274,7 @@ def facility_location(dist: torch.Tensor, k: int, tie_quant: float,
         j = torch.argmax(torch.where(taken, -torch.inf, gains))
         chosen.append(j)
         taken = taken.index_fill(0, j[None], True)
-        cover = torch.minimum(cover, dist[j])
+        cover = torch.minimum(cover, dist.index_select(0, j[None])[0])
     return torch.stack(chosen).to(torch.int32)
 
 
@@ -313,17 +326,23 @@ def divfl_functional(num_clients: int, num_select: int, total_rounds: int,
             state = refresh_cache(state, lambda st: ops.cached_feature_step(
                 st.feats, st.dist_cache, st.row_stats, st.stale_ids,
                 metric="l2", device=device))
-        warm = (int(state.unseen_count) == 0 if selected_only
-                else int(state.hist_count) > 0)
-        if not warm:
+
+        def cold():
             if selected_only:
                 # poll everyone once before trusting the distances
                 ids = coverage_sweep_device(noise.cover, state.seen, k)
             else:
                 ids = weighted_sample_device(noise.cover, state.weights, k)
-            return ids.to(torch.int32), state
-        dist = state.dist_cache if incremental else _l2_scratch(state.feats)
-        return facility_location(dist, k, tie_quant), state
+            return ids.to(torch.int32)
+
+        def warm():
+            dist = (state.dist_cache if incremental
+                    else _l2_scratch(state.feats))
+            return facility_location(dist, k, tie_quant)
+
+        warm_ok = (state.unseen_count == 0 if selected_only
+                   else state.hist_count > 0)
+        return cond(warm_ok, warm, cold), state
 
     def update(state, t, ids, obs: Observations):
         if obs.full_updates is None:
@@ -367,7 +386,7 @@ def fedcor_functional(num_clients: int, num_select: int, total_rounds: int,
     def init():
         return init_state(n, weights, hist_len=h_len, device=device)
 
-    def warm(state: SelectorState, t: int) -> torch.Tensor:
+    def warm(state: SelectorState, t: torch.Tensor) -> torch.Tensor:
         # standardized loss-history embedding over the valid ring
         x = state.loss_hist.T                           # (N, H), newest last
         valid = (torch.arange(h_len, device=device)
@@ -379,8 +398,7 @@ def fedcor_functional(num_clients: int, num_select: int, total_rounds: int,
         xs = (x - mu) / (torch.sqrt(var) + 1e-8) * valid
         d2 = torch.square(xs[:, None, :] - xs[None, :, :]).sum(dim=-1)
         kmat = torch.exp(-d2 / (2.0 * ls * ls))
-        w_t = torch.tensor(beta, dtype=torch.float32,
-                           device=device) ** float(max(t - warmup, 0))
+        w_t = torch.pow(beta, torch.clamp(t - warmup, min=0).float())
         kmat = w_t * kmat + (1.0 - w_t) * torch.eye(n, device=device)
 
         # greedy max variance reduction weighted by the current losses
@@ -392,18 +410,24 @@ def fedcor_functional(num_clients: int, num_select: int, total_rounds: int,
                                 var_d * (1.0 + state.losses))
             j = torch.argmax(score)
             chosen.append(j)
-            cj = cov[:, j]
-            denom = cov[j, j] + 1e-8
+            # gathers by index tensor: no scalar crosses to the host
+            cj = cov.index_select(1, j[None])[:, 0]
+            denom = cj.index_select(0, j[None])[0] + 1e-8
             taken = taken.index_fill(0, j[None], True)
             var_d = var_d - cj * cj / denom
             cov = cov - torch.outer(cj, cj) / denom
         return torch.stack(chosen).to(torch.int32)
 
     def select(state: SelectorState, t: int, noise: SelectNoise):
-        if t >= warmup and int(state.hist_count) >= 2:
-            return warm(state, t), state
-        ids = weighted_sample_device(noise.cover, state.weights, k)
-        return ids.to(torch.int32), state
+        t = round_index(t, device)
+
+        def cold():
+            ids = weighted_sample_device(noise.cover, state.weights, k)
+            return ids.to(torch.int32)
+
+        ids = cond((t >= warmup) & (state.hist_count >= 2),
+                   lambda: warm(state, t), cold)
+        return ids, state
 
     def update(state, t, ids, obs: Observations):
         if obs.losses is None:

@@ -12,12 +12,22 @@ draws in one place per round.  ``update`` takes the
 :class:`Observations` the server computed for the selector's
 ``requires``.  Transitions return new tensors and never write into the
 state they were given.
+
+A branch on the state goes through :func:`cond`, the port's
+``jax.lax.cond``: the host loop reads the predicate and runs one
+branch; inside :func:`both_branches` (the scanned driver's round
+step) both run and each output is picked on the device.  The round
+index ``t`` is a 0-d int32 tensor (:func:`round_index`), as the
+reference's traced ``t``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, FrozenSet, NamedTuple, Optional
 
 import torch
+
+from repro_torch.optim import tree_map
 
 
 class SelectNoise(NamedTuple):
@@ -118,7 +128,6 @@ SELECTOR_LAYER = "queue 1: the rest of the selector layer"
 LOCAL_UPDATES = ("queue 1: the other local updates, momentum, and the "
                  "estimator's theory half")
 LM_FINE_TUNING = "queue 1: federated LM fine-tuning"
-ROUND_DRIVER = "queue 1: the scanned round driver"
 TELEMETRY = "queue 1: telemetry"
 
 
@@ -131,6 +140,56 @@ def not_ported(name: str, value,
     return NotImplementedError(
         f"{name}={value!r} is not ported yet (ROADMAP.md, {item}); "
         "the port runs only its default")
+
+
+def round_index(t, device=None) -> torch.Tensor:
+    """Round ``t`` as a 0-d int32 tensor on ``device``; a tensor is
+    returned as it is."""
+    if isinstance(t, torch.Tensor):
+        return t
+    return torch.tensor(int(t), dtype=torch.int32, device=device)
+
+
+#: depth of :func:`both_branches` blocks entered
+_both_depth = [0]
+
+
+@contextlib.contextmanager
+def both_branches():
+    """Within the block, :func:`cond` reads nothing on the host: it runs
+    both branches and picks each output on the device."""
+    _both_depth[0] += 1
+    try:
+        yield
+    finally:
+        _both_depth[0] -= 1
+
+
+def _pick(pred: torch.Tensor, a, b):
+    """``torch.where(pred, a, b)`` leaf by leaf; a leaf both branches
+    return unchanged is kept as it is."""
+    def leaf(x, y):
+        if x is y:
+            return x
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise TypeError(f"cond branches differ: {x.dtype}"
+                            f"{tuple(x.shape)} vs {y.dtype}{tuple(y.shape)}")
+        return torch.where(pred, x, y)
+
+    return tree_map(leaf, a, b)
+
+
+def cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable,
+         *operands):
+    """``true_fn(*operands)`` if the 0-d bool ``pred`` holds, else
+    ``false_fn(*operands)``, as ``jax.lax.cond``.  Both branches return
+    the same structure of tensors.  Outside :func:`both_branches` the
+    predicate is read on the host (one scalar) and one branch runs;
+    inside, both run and ``torch.where`` picks each output, so a branch
+    must stay finite and in range on any state it may be given."""
+    if _both_depth[0]:
+        return _pick(pred, true_fn(*operands), false_fn(*operands))
+    return true_fn(*operands) if bool(pred) else false_fn(*operands)
 
 
 def mark_seen(state: SelectorState, ids: torch.Tensor) -> SelectorState:
@@ -166,10 +225,11 @@ def stale_clear(state: SelectorState) -> SelectorState:
 
 def refresh_cache(state: SelectorState, step) -> SelectorState:
     """Run ``step(state) -> (dist, stats)`` over the staled rows when
-    any update staled a row since the last refresh (one scalar read),
-    then reset the ring's counter.  Shared by the incremental
-    selectors (hics on Δb, cs and divfl on full-update features)."""
-    if int(state.stale_fill) > 0:
-        dist, stats = step(state)
-        state = state._replace(dist_cache=dist, row_stats=stats)
-    return stale_clear(state)
+    any update staled a row since the last refresh (a :func:`cond` on
+    ``stale_fill > 0``), then reset the ring's counter.  Shared by the
+    incremental selectors (hics on Δb, cs and divfl on full-update
+    features).  Before the first update the ring holds zeros: a
+    refresh that :func:`both_branches` runs there is discarded."""
+    dist, stats = cond(state.stale_fill > 0, step,
+                       lambda st: (st.dist_cache, st.row_stats), state)
+    return stale_clear(state._replace(dist_cache=dist, row_stats=stats))

@@ -18,8 +18,12 @@ other linkages, ``num_clusters`` other than K and ``stale_slots`` other
 than 1 are not ported: they raise.
 
 Both run on the state's device: the CUDA kernels on the card, the
-plain versions on the CPU.  The two branch tests read one scalar each
-from the device per round.  ``update`` reads ``obs.bias_updates``.
+plain versions on the CPU.  The two branch tests go
+through ``functional.cond``: one scalar read each per round in the
+host loop, none in the scanned driver's
+round step, where both branches run (ward on the sweep rounds' zero
+cache is finite and discarded).  ``update`` reads
+``obs.bias_updates``.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ from repro_torch.core.sampling import (anneal_device, coverage_sweep_device,
 from repro_torch.core.selectors.functional import (FunctionalSelector,
                                                    Observations,
                                                    SelectNoise,
-                                                   SelectorState,
+                                                   SelectorState, cond,
                                                    init_state, mark_seen,
                                                    not_ported,
                                                    refresh_cache,
@@ -77,24 +81,30 @@ def hics_functional(num_clients: int, num_select: int, total_rounds: int,
                     st.delta_b, st.dist_cache, st.row_stats, st.stale_ids,
                     temperature, lam=lam, normalize=normalize,
                     gram_in_bf16=gram_in_bf16, device=device)[1:]))
-        if int(state.unseen_count) > 0:
+
+        def sweep(state):
             ids = coverage_sweep_device(noise.cover, state.seen, k)
             return ids.to(torch.int32), mark_seen(state, ids)
-        if incremental:
-            ent, dist = state.row_stats[:, 1], state.dist_cache
-        else:
-            ent, dist = ops.hics_selection_step(
-                state.delta_b, temperature, lam=lam, normalize=normalize,
-                gram_in_bf16=gram_in_bf16, device=device)
-        # the cache scatter and the pairwise kernel keep the matrix
-        # exactly symmetric, so clustering skips re-symmetrizing
-        labels = agglomerate_device(dist, k, precomputed=True)
-        means = cluster_means_device(ent, labels, k)
-        gamma_t = anneal_device(gamma0, t, tr, device=device)
-        ids = hierarchical_sample_device(noise.cluster, noise.client,
-                                         labels, means, state.weights, k,
-                                         gamma_t)
-        return ids, state
+
+        def clustered(state):
+            if incremental:
+                ent, dist = state.row_stats[:, 1], state.dist_cache
+            else:
+                ent, dist = ops.hics_selection_step(
+                    state.delta_b, temperature, lam=lam,
+                    normalize=normalize, gram_in_bf16=gram_in_bf16,
+                    device=device)
+            # the cache scatter and the pairwise kernel keep the matrix
+            # exactly symmetric, so clustering skips re-symmetrizing
+            labels = agglomerate_device(dist, k, precomputed=True)
+            means = cluster_means_device(ent, labels, k)
+            gamma_t = anneal_device(gamma0, t, tr, device=device)
+            ids = hierarchical_sample_device(noise.cluster, noise.client,
+                                             labels, means, state.weights,
+                                             k, gamma_t)
+            return ids, state
+
+        return cond(state.unseen_count > 0, sweep, clustered, state)
 
     def update(state: SelectorState, t: int, ids: torch.Tensor,
                obs: Observations) -> SelectorState:

@@ -14,14 +14,32 @@ Per round t:
                   DivFL's refresh="selected")
      then state = fn.update(state, t, ids, obs)
 
-The port of the reference's host-loop ``FederatedServer.run``.  All of
-a round's randomness (the selector's Gumbel draws, the cohort's epoch
+The port of the reference's ``FederatedServer``.  All of a round's
+randomness (the selector's Gumbel draws, the cohort's epoch
 permutations and, for DivFL's ideal setting, the all-clients poll's)
 is drawn in one place, :meth:`draw_round`, from one
 ``torch.Generator`` on the CPU, and then moved to the device, so a CPU
 run and a card run consume identical draws.  ``run(draws=...)`` takes
 another source of the same tensors (the tests replay the reference's
-key chain through it).
+key chain through it).  The round index ``t`` reaches the transitions,
+the lr decay and FedCor's kernel weight as a 0-d int32 tensor.
+
+Two drivers over the same round, :meth:`FederatedServer._round`:
+
+* ``run()`` (host loop): one Python iteration a round; each branch on
+  the selector state (``functional.cond``) reads one scalar on the
+  host and runs one branch.
+* ``run(jit_rounds=True)`` (the reference's scanned driver): the round
+  is one functional step, ``(params, state, t), draws -> (params,
+  state, t + 1), (ids, train loss, Ĥ)``, built once, that reads
+  nothing on the host: every ``cond`` runs both branches and picks on
+  the device.  On the card the step is captured once as a
+  ``torch.cuda.CUDAGraph`` and replayed every round; on the CPU it
+  runs eagerly.  Rounds go in segments of ``eval_every`` (all rounds
+  in one without a test set): a segment's draws are made first, in
+  round order, from the same generator as the host loop's, and its
+  per-round outputs are read once at its end, before the evaluation.
+  Both drivers pick the same participants.
 """
 from __future__ import annotations
 
@@ -37,10 +55,12 @@ from repro_torch.core.hetero import (head_bias_updates_stacked,
                                      head_num_classes)
 from repro_torch.core.selectors import (Observations, SelectNoise,
                                         make_functional)
-from repro_torch.core.selectors.functional import (ROUND_DRIVER, TELEMETRY,
-                                                   not_ported)
+from repro_torch.core.selectors.functional import (TELEMETRY,
+                                                   both_branches,
+                                                   not_ported, round_index)
 from repro_torch.fed.client import (LocalSpec, make_eval_fn,
                                     make_local_update, make_loss_poll)
+from repro_torch.kernels import build as kernel_build
 from repro_torch.optim import tree_map
 
 @dataclasses.dataclass(frozen=True)
@@ -55,14 +75,13 @@ class FedConfig:
     seed: int = 0
     lr_decay_every: int = 10     # paper: lr halves every 10 rounds
     lr_decay: float = 0.5
-    #: the reference's scanned round loop and telemetry groups: only
-    #: their defaults (the host loop, no telemetry) are ported
+    #: run the segmented round driver (one CUDA graph a round on the
+    #: card) instead of the host loop
     jit_rounds: bool = False
+    #: the reference's telemetry groups: only () is ported
     telemetry: tuple = ()
 
     def __post_init__(self):
-        if self.jit_rounds:
-            raise not_ported("jit_rounds", self.jit_rounds, ROUND_DRIVER)
         if self.telemetry:
             raise not_ported("telemetry", self.telemetry, TELEMETRY)
 
@@ -123,6 +142,57 @@ def _gumbel(gen: torch.Generator, shape) -> torch.Tensor:
     return -torch.empty(shape).exponential_(generator=gen).log()
 
 
+def _copy_into(static, value) -> None:
+    """Copy ``value`` leafwise into the ``static`` tensors.  The round's
+    transitions return new tensors (or their input unchanged), so no
+    copy reads what another one wrote."""
+    tree_map(lambda s, v: s.copy_(v), static, value)
+
+
+class RoundGraph:
+    """One round captured as a ``torch.cuda.CUDAGraph``.
+
+    ``step((params, state, t), draws) -> ((params, state, t + 1),
+    outputs)`` is warmed up once on the capture stream, which builds
+    and loads the kernels, sets their attributes and makes the per-stream
+    buffers they keep (``kernels.pairwise.tile_counters``), without
+    writing back: the transitions never write into what they are given.
+    Then ``outputs = step(static)`` and the copy of the new carry into
+    the static carry are captured; each :meth:`replay` copies a round's
+    draws into the static draws and replays.  A capture records its
+    kernels' launches without making them: the counts of
+    ``kernels.build`` are set back after it, and each replay adds the
+    captured launches."""
+
+    def __init__(self, step: Callable, carry, draws: RoundDraws):
+        self.carry = tree_map(torch.clone, carry)
+        self.draws = tree_map(torch.clone, draws)
+        self.stream = torch.cuda.Stream()
+        self.stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self.stream):
+            step(self.carry, self.draws)
+        torch.cuda.current_stream().wait_stream(self.stream)
+        before = kernel_build.counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=self.stream):
+            new_carry, self.outputs = step(self.carry, self.draws)
+            _copy_into(self.carry, new_carry)
+        self.launches = kernel_build.counts_since(before)
+        kernel_build.add_counts(self.launches, sign=-1)
+
+    def load(self, carry) -> None:
+        """Start the next replay from ``carry``."""
+        _copy_into(self.carry, carry)
+
+    def replay(self, draws: RoundDraws) -> tuple:
+        """One round from the static carry with ``draws``; returns
+        copies of its outputs."""
+        _copy_into(self.draws, draws)
+        self.graph.replay()
+        kernel_build.add_counts(self.launches)
+        return tuple(o.clone() for o in self.outputs)
+
+
 class FederatedServer:
     """Drives T rounds of federated training over padded client data.
 
@@ -166,15 +236,30 @@ class FederatedServer:
             self._poll = make_loss_poll(apply_fn)
         if "full_all" in self.requires:
             self._grad_all = make_grad_all(apply_fn, cfg.local)
+        #: the scanned driver's round step, built once; on the card its
+        #: graph, captured at the first segment, and the captures made
+        self._round_step: Optional[Callable] = None
+        self._graph: Optional[RoundGraph] = None
+        self.captures = 0
+        # timing: wall_s per host-loop round; segment_wall_s and
+        # segment_rounds per scanned segment (its draws and its one
+        # read of the outputs included, the first one's capture too);
+        # rounds_per_s over every timed round, whichever driver ran
         self.history: Dict[str, list] = {
             "round": [], "train_loss": [], "selected": [],
             "test_round": [], "test_loss": [], "test_acc": [],
             "bias_entropy": [], "wall_s": [],
+            "segment_wall_s": [], "segment_rounds": [],
         }
 
     def draw_round(self, t: int) -> RoundDraws:
         """Round t's Gumbel draws and permutations, from the server's
         generator on the CPU, moved to the device."""
+        return tree_map(lambda a: a.to(self.device), self._draw_host(t))
+
+    def _draw_host(self, t: int) -> RoundDraws:
+        """Round t's draws on the CPU (the scanned driver moves a whole
+        segment's at once)."""
         del t
         cfg, gen = self.cfg, self.gen
         n = cfg.num_clients
@@ -189,58 +274,73 @@ class FederatedServer:
             return torch.stack([
                 torch.stack([torch.randperm(s_max, generator=gen)
                              for _ in range(epochs)])
-                for _ in range(rows)]).to(self.device)
+                for _ in range(rows)])
 
-        dev = self.device
         return RoundDraws(
-            SelectNoise(*(a.to(dev) for a in noise)),
-            perms(k, cfg.local.epochs),
+            noise, perms(k, cfg.local.epochs),
             perms(n, 1) if "full_all" in self.requires else None)
 
-    def local_update(self, t: int, ids: torch.Tensor,
-                     perms: torch.Tensor):
-        """The cohort's LocalUpdate from the current params: (K-stacked
-        params, {"train_loss": (K,)}).  The lr halves every
-        ``lr_decay_every`` rounds, passed as a tensor."""
+    def local_update(self, t, ids: torch.Tensor, perms: torch.Tensor,
+                     params: Optional[dict] = None):
+        """The cohort's LocalUpdate from ``params`` (default the
+        current ones): (K-stacked params, {"train_loss": (K,)}).  The
+        lr halves every ``lr_decay_every`` rounds: a 0-d tensor computed
+        from the round index ``t`` (a 0-d int32 tensor, or an int)."""
         cfg, idx = self.cfg, ids.long()
-        decay = torch.tensor(cfg.lr_decay, dtype=torch.float32,
-                             device=self.device) ** (t // cfg.lr_decay_every)
-        return self._lu(self.params, self.x[idx], self.y[idx],
-                        self.mask[idx], perms[:idx.shape[0]], decay)
+        t = round_index(t, self.device)
+        decay = torch.pow(cfg.lr_decay, torch.div(
+            t, cfg.lr_decay_every, rounding_mode="floor").float())
+        return self._lu(self.params if params is None else params,
+                        self.x[idx], self.y[idx], self.mask[idx],
+                        perms[:idx.shape[0]], decay)
 
     def observe(self, params_before: dict, new_params: dict,
-                grad_perms: Optional[torch.Tensor]) -> Observations:
+                grad_perms: Optional[torch.Tensor],
+                params: Optional[dict] = None) -> Observations:
         """What the selector ``requires``, against the aggregated
-        ``self.params``; Δb against ``params_before``."""
+        ``params`` (default ``self.params``); Δb against
+        ``params_before``."""
         req = self.requires
+        params = self.params if params is None else params
         bias = losses = full = None
         if "bias_sel" in req:
             bias = head_bias_updates_stacked(params_before, new_params)
         if "loss_all" in req:
-            losses = self._poll(self.params, self.x, self.y, self.mask)
+            losses = self._poll(params, self.x, self.y, self.mask)
         if "full_all" in req:
-            full = self._grad_all(self.params, self.x, self.y, self.mask,
+            full = self._grad_all(params, self.x, self.y, self.mask,
                                   grad_perms)
         elif "full_sel" in req:
-            full = full_sel_updates(self.params, new_params)
+            full = full_sel_updates(params, new_params)
         return Observations(bias_updates=bias, full_updates=full,
                             losses=losses)
 
-    def step(self, t: int, rd: RoundDraws):
-        """One round from the current params and selector state, with
-        round t's draws: select, local update, aggregate, observe,
-        update.  Returns (ids, the cohort's metrics)."""
-        ids, self.state = self.selector.select(self.state, t, rd.select)
-        new_params, metrics = self.local_update(t, ids, rd.perms)
-        params_before = self.params
-        self.params = aggregate_params(new_params)
-        obs = self.observe(params_before, new_params, rd.grad_perms)
-        self.state = self.selector.update(self.state, t, ids, obs)
+    def _round(self, params: dict, state, t: torch.Tensor, rd: RoundDraws):
+        """One round, functional: select, local update, aggregate,
+        observe, update.  Returns (params, state, ids, the cohort's
+        metrics); writes into nothing it is given."""
+        ids, state = self.selector.select(state, t, rd.select)
+        new_params, metrics = self.local_update(t, ids, rd.perms, params)
+        agg = aggregate_params(new_params)
+        obs = self.observe(params, new_params, rd.grad_perms, agg)
+        return agg, self.selector.update(state, t, ids, obs), ids, metrics
+
+    def step(self, t, rd: RoundDraws):
+        """One host-loop round from the current params and selector
+        state, with round t's draws.  Returns (ids, the cohort's
+        metrics)."""
+        self.params, self.state, ids, metrics = self._round(
+            self.params, self.state, round_index(t, self.device), rd)
         return ids, metrics
 
     def run(self, progress: bool = False,
-            draws: Optional[Callable[[int], RoundDraws]] = None
-            ) -> Dict[str, list]:
+            draws: Optional[Callable[[int], RoundDraws]] = None,
+            jit_rounds: Optional[bool] = None) -> Dict[str, list]:
+        """``cfg.rounds`` rounds from round 0, by the host loop or, with
+        ``jit_rounds`` (default ``cfg.jit_rounds``), the segmented
+        driver."""
+        if self.cfg.jit_rounds if jit_rounds is None else jit_rounds:
+            return self._run_segments(progress, draws)
         cfg = self.cfg
         draws = draws or self.draw_round
         for t in range(cfg.rounds):
@@ -257,8 +357,89 @@ class FederatedServer:
             if self.test is not None and (t % cfg.eval_every == 0
                                           or t == cfg.rounds - 1):
                 self._eval_round(t, progress)
-        wall = sum(self.history["wall_s"])
-        self.history["rounds_per_s"] = cfg.rounds / wall if wall else None
+        return self._finish()
+
+    def _make_round_step(self) -> Callable:
+        """The scanned driver's round: ``((params, state, t), draws) ->
+        ((params, state, t + 1), (ids, mean train loss, Ĥ or (0,)))``,
+        :meth:`_round` with every ``cond`` on the device."""
+        ent = self.selector.entropies
+
+        def round_step(carry, rd: RoundDraws):
+            params, state, t = carry
+            with both_branches():
+                params, state, ids, metrics = self._round(params, state, t,
+                                                          rd)
+            h = (ent(state) if ent is not None
+                 else torch.zeros(0, device=self.device))
+            return ((params, state, t + 1),
+                    (ids, metrics["train_loss"].mean(), h))
+
+        return round_step
+
+    def _run_segments(self, progress: bool,
+                      draws: Optional[Callable[[int], RoundDraws]]
+                      ) -> Dict[str, list]:
+        """The scanned driver: the round step in segments of
+        ``eval_every`` rounds, replayed as one CUDA graph a round on the
+        card (a capture that fails raises), run eagerly on the CPU."""
+        cfg, dev = self.cfg, self.device
+        draws = draws or self._draw_host
+        if self._round_step is None:
+            self._round_step = self._make_round_step()
+        carry = (self.params, self.state,
+                 torch.zeros((), dtype=torch.int32, device=dev))
+        if self._graph is not None:
+            self._graph.load(carry)
+        seg_len = cfg.eval_every if self.test is not None else cfg.rounds
+        t = 0
+        while t < cfg.rounds:
+            n = min(seg_len, cfg.rounds - t)
+            t_start = time.perf_counter()
+            with torch.profiler.record_function(f"fed/scan_segment[{n}]"):
+                carry, outs = self._segment(carry, [draws(t + i)
+                                                    for i in range(n)])
+                ids, loss, ent = (torch.stack(o).cpu() for o in zip(*outs))
+            self.params, self.state = carry[0], carry[1]
+            self.history["segment_wall_s"].append(
+                time.perf_counter() - t_start)
+            self.history["segment_rounds"].append(n)
+            for i in range(n):
+                self.history["round"].append(t + i)
+                self.history["train_loss"].append(float(loss[i]))
+                self.history["selected"].append(ids[i].tolist())
+                self.history["bias_entropy"].append(
+                    ent[i].tolist() if ent.shape[-1] else None)
+            t += n
+            if self.test is not None:
+                self._eval_round(t - 1, progress)
+        return self._finish()
+
+    def _segment(self, carry, draws: list):
+        """The rounds of one segment from ``carry`` with their
+        ``draws``: (the carry after them, each round's outputs)."""
+        seg = tree_map(lambda *a: torch.stack(a).to(self.device), *draws)
+        outs = []
+        for i in range(len(draws)):
+            rd = tree_map(lambda a: a[i], seg)
+            if self.device.type == "cpu":
+                carry, out = self._round_step(carry, rd)
+                outs.append(out)
+                continue
+            if self._graph is None:
+                self._graph = RoundGraph(self._round_step, carry, rd)
+                self.captures += 1
+            outs.append(self._graph.replay(rd))
+        if self.device.type == "cuda":   # the graph keeps its carry
+            carry = tree_map(torch.clone, self._graph.carry)
+        return carry, outs
+
+    def _finish(self) -> Dict[str, list]:
+        wall = (sum(self.history["segment_wall_s"])
+                or sum(self.history["wall_s"]))
+        rounds = (sum(self.history["segment_rounds"])
+                  or len(self.history["wall_s"]))
+        self.history["rounds_per_s"] = rounds / wall if wall else None
         return self.history
 
     def _eval_round(self, t: int, progress: bool) -> None:

@@ -38,7 +38,7 @@ class ExperimentSpec:
     data: SyntheticSpec = dataclasses.field(default_factory=SyntheticSpec)
     eval_every: int = 5
     seed: int = 0
-    jit_rounds: bool = False       # refused: see fed.server.FedConfig
+    jit_rounds: bool = False       # the segmented driver: see fed.server
     telemetry: Sequence[str] = ()  # refused: see fed.server.FedConfig
 
 

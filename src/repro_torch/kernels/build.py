@@ -51,6 +51,8 @@ _loaded: dict = {}
 
 #: kernel launches per source since the last :func:`reset_launches`;
 #: each wrapper adds one where it launches its kernel, and nowhere else
+#: (a launch recorded into a CUDA graph counts at each replay:
+#: ``fed.server.RoundGraph``)
 launches = {name: 0 for name in SIGNATURES}
 
 #: the variants a source compiles in, by axis: the Gram kernels'
@@ -72,6 +74,38 @@ def reset_launches() -> None:
         for counts in axes.values():
             for v in counts:
                 counts[v] = 0
+
+
+def counts() -> dict:
+    """A copy of every count: {"launches": ..., "variants": ...}."""
+    return {"launches": dict(launches),
+            "variants": {name: {axis: dict(c) for axis, c in axes.items()}
+                         for name, axes in variant_launches.items()}}
+
+
+def counts_since(before: dict) -> dict:
+    """The launches counted since ``before`` (a :func:`counts`)."""
+    now = counts()
+    return {"launches": {k: v - before["launches"][k]
+                         for k, v in now["launches"].items()},
+            "variants": {
+                name: {axis: {v: n - before["variants"][name][axis][v]
+                              for v, n in c.items()}
+                       for axis, c in axes.items()}
+                for name, axes in now["variants"].items()}}
+
+
+def add_counts(delta: dict, sign: int = 1) -> None:
+    """Add ``sign`` times ``delta`` (a :func:`counts_since`) to the
+    counts: a CUDA graph's replay adds the launches its capture
+    recorded, and the capture, which launches nothing, takes them
+    back."""
+    for k, v in delta["launches"].items():
+        launches[k] += sign * v
+    for name, axes in delta["variants"].items():
+        for axis, c in axes.items():
+            for v, n in c.items():
+                variant_launches[name][axis][v] += sign * n
 
 
 def _nvcc() -> str:

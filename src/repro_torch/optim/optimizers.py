@@ -18,9 +18,16 @@ class Optimizer:
 
 
 def tree_map(fn, *trees):
-    """Apply ``fn`` leafwise over nested dicts of tensors."""
-    if isinstance(trees[0], dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    """Apply ``fn`` leafwise over nested dicts and tuples of tensors (a
+    named tuple keeps its type); a None leaf stays None."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, tuple):
+        out = [tree_map(fn, *leaves) for leaves in zip(*trees, strict=True)]
+        return type(first)(*out) if hasattr(first, "_fields") else tuple(out)
     return fn(*trees)
 
 
