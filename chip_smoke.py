@@ -42,6 +42,13 @@ their plain versions, the entropy kernel's path through
 the serve entry point (batch 4, prompt 64, 32 greedy tokens, beside
 its byte bound), the decode kernel on the live bf16 cache, and the same
 weights cut to two layers on the card against the port's CPU run.
+Then phase ``lm_train`` (``python3 chip_smoke.py lm_train`` alone):
+federated fine-tuning of qwen2.5-3b at full width and depth through
+``repro_torch.launch.train`` (8 clients, K = 2, 6 rounds), its peak
+memory and ms a local step, the selection replayed on the CPU from the
+card's Δb, the final cache against the plain versions, a profile of one
+local step, and a two-layer cut's local update on the card against the
+port's CPU run.
 Prints one JSON line per phase, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": ...}``.  Exits non-zero, with no result
 line, without a CUDA device or when any check fails.
@@ -65,6 +72,7 @@ check, at the reference's own kernel tolerances.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -96,13 +104,17 @@ from repro_torch.kernels.pairwise import (  # noqa: E402
 from repro_torch.kernels.hetero_entropy import entropy_rows  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_kernel, kernel_splits)
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import make_selector  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.optim import tree_map  # noqa: E402
 
 LAM = 10.0
 T_SLICE = 0.63
 ROUNDS = 14
 CPU_ROUNDS = 3
+T_LM = 0.01                    # the LM fine-tune's HiCS temperature
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM, bf16 on the tensor cores, dense
@@ -351,7 +363,12 @@ def _mode(bf16: bool) -> str:
 
 
 def strip_case(k, n, c, temperature, normalize, dev, timed=False,
-               bf16=False):
+               bf16=False, cold=False):
+    """The arccos strip against its plain version; where C is split
+    (S > 1) also unsplit (S = 1).  A timed case is warm in L2 and
+    host-paced, or with ``cold`` cycles x through copies past the 50 MB
+    L2 (as the selector's refresh after an LM round finds Δb) and adds
+    the kernels' device time."""
     x = rows(n, c, seed=k + n + c, dev=dev)
     stats = stats_of(x, temperature, normalize).contiguous()
     ids = torch.arange(0, n, max(1, n // k), device=dev)[:k]
@@ -367,20 +384,40 @@ def strip_case(k, n, c, temperature, normalize, dev, timed=False,
             bool(torch.equal(kk, kk.T)))
     require(tag + ": true diagonal not zero",
             bool((kk.diagonal() == 0).all()))
-    out = {"case": tag, "max_abs_err": err, "splits": strip_splits(k, n, c)}
+    splits = strip_splits(k, n, c)
+    out = {"case": tag, "max_abs_err": err, "splits": splits}
+    if splits > 1:
+        one = gram_strip(r, x, s_r, stats, ids32, LAM, gram_in_bf16=bf16,
+                         splits=1)
+        out["unsplit_max_abs_err"] = check(tag + " unsplit (S = 1)", one,
+                                           want, 1e-5, 1e-5)
     if timed:
-        out["ms"] = time_ms(lambda: gram_strip(r, x, s_r, stats, ids32,
-                                               LAM, gram_in_bf16=bf16))
-        out["plain_ms"] = time_ms(
-            lambda: ref.distance_strip_ref(x, stats, ids, LAM,
-                                           gram_in_bf16=bf16))
         # the K rows and their stats are a gather of x and stats_all;
         # the K x K block is symmetric and its diagonal zero
         pairs = k * n - k * (k + 1) // 2
         out["bound_ms"], out["bound_by"] = bound(
             4 * (n * c + 2 * n + k + k * n), 2 * c * pairs + 10 * pairs,
             kbuild.OPERANDS[bf16])
-        out["bound_share"] = out["bound_ms"] / out["ms"]
+        if not cold:
+            out["ms"] = time_ms(lambda: gram_strip(r, x, s_r, stats, ids32,
+                                                   LAM, gram_in_bf16=bf16))
+            out["plain_ms"] = time_ms(
+                lambda: ref.distance_strip_ref(x, stats, ids, LAM,
+                                               gram_in_bf16=bf16))
+            out["bound_share"] = out["bound_ms"] / out["ms"]
+            return out
+        copies = [(xc, xc[ids].contiguous()) for xc in rotating_copies(x)]
+        kern = [lambda xc=xc, rc=rc: gram_strip(rc, xc, s_r, stats, ids32,
+                                                LAM, gram_in_bf16=bf16)
+                for xc, rc in copies]
+        plain = [lambda xc=xc: ref.distance_strip_ref(xc, stats, ids, LAM,
+                                                      gram_in_bf16=bf16)
+                 for xc, _ in copies]
+        out["ms"] = time_ms_rotating(kern)
+        out["plain_ms"] = time_ms_rotating(plain)
+        out["device_ms"] = device_ms(kern)
+        out["bound_share"] = out["bound_ms"] / out["device_ms"]
+        out["library_ms"] = None   # no single PyTorch call computes it
     return out
 
 
@@ -555,8 +592,9 @@ def cached_step_case(n, k, c, normalize, dev):
 def kernel_phase(dev):
     """Each kernel against its plain version.  Returns the cases by
     kernel, the strip's timed cases on the baselines' path by epilogue
-    (f32 and bf16), and the Gram kernels' timed case at the slice's
-    shape by operand mode."""
+    (f32 and bf16), the Gram kernels' timed case at the slice's shape by
+    operand mode, the stats kernels' and pairwise's timed wide cases,
+    and the arccos strip's timed case on the LM fine-tune's path."""
     t0 = time.perf_counter()
     slice_cases = {
         "fused_stats": [fused_stats_case(5, 10, T_SLICE, "normalized", dev,
@@ -646,6 +684,11 @@ def kernel_phase(dev):
                                      timed=mode == "unscaled"))
         if mode == "unscaled":
             stats_timed.append(wide[-1])
+    # the arccos strip of the LM fine-tune's refresh: K = 2 rows against
+    # N = 8 clients at vocab width, T = 0.01, split across C
+    lm_strip = strip_case(2, 8, 151_936, T_LM, False, dev, timed=True,
+                          cold=True)
+    wide.append(lm_strip)
     for mode in ("unscaled", "normalized"):
         for splits in (3, 8):
             wide.append(fused_stats_case(17, 4099, T_SLICE, mode, dev,
@@ -657,7 +700,7 @@ def kernel_phase(dev):
     emit({"phase": "kernels", "slice_shapes": slice_cases,
           "wider_shapes": wide,
           "seconds": time.perf_counter() - t0})
-    return slice_cases, path_strip, modes, stats_timed, pair_timed
+    return slice_cases, path_strip, modes, stats_timed, pair_timed, lm_strip
 
 
 # ---------------------------------------------------------------------------
@@ -1837,12 +1880,230 @@ def _teacher_forced(api, params, prompt, gen, forced, dev="cpu"):
     return out, torch.stack(picks, dim=1)
 
 
+# ---------------------------------------------------------------------------
+# LM fine-tuning: qwen2.5-3b at full width and depth, 6 rounds
+# ---------------------------------------------------------------------------
+
+LM_CLIENTS, LM_SELECT, LM_ROUNDS, LM_SEQS = 8, 2, 6, 4
+LM_ARGV = ["--arch", "qwen2.5-3b", "--full", "--rounds", str(LM_ROUNDS),
+           "--clients", str(LM_CLIENTS), "--select", str(LM_SELECT),
+           "--seqs-per-client", str(LM_SEQS), "--seed", "0"]
+LM_CUT_LAYERS = 2
+LM_CUT_LOSS_TOL = 1e-4       # relative
+LM_CUT_UPDATE_TOL = 1e-3     # of the largest |Δ| of the leaf
+
+
+def lm_train_phase(dev) -> dict:
+    """``repro_torch.launch.train`` on qwen2.5-3b at full width and
+    depth (8 clients, K = 2, 6 rounds, the reference's other defaults:
+    seq-len 128, 4 sequences a client, 1 epoch, sgd lr 0.05, HiCS at
+    T = 0.01), the counts set to 0 just before it and read just after.
+    Rounds 0-3 are HiCS's coverage sweep, 4-5 clustered; the selects
+    of rounds 1-5 refresh the cache through fused_stats and the arccos
+    strip.  Then: the selection replayed on the CPU from the card's Δb
+    (the same participants every round), the final cache against the
+    plain versions on the card, a profile of one local step, and the
+    model cut to two layers trained on the card and on the CPU.
+    Returns the kernels' launches on the path."""
+    # the earlier phases' servers hold their CUDA graphs' private pools
+    # (~17 GB) until the cycle collector frees them
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    res = train.main(LM_ARGV)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kbuild.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    hist, rec, sel = res["history"], res["record"], res["selector"]
+    for name in ("fused_stats", "gram_update"):
+        require(f"lm_train: {name} was not launched", launches[name] > 0)
+    # one refresh a select after the first update, one stats launch each
+    require("lm_train: fused_stats launches differ from the strip's",
+            launches["fused_stats"] == launches["gram_update"]
+            == LM_ROUNDS - 1)
+    require("lm_train: pairwise launched on the incremental path",
+            launches["pairwise"] == 0)
+    require("lm_train: non-finite loss", bool(np.isfinite(hist["loss"]).all()))
+    require("lm_train: participants not distinct",
+            all(len(set(ids)) == LM_SELECT for ids in hist["selected"]))
+    sweep = LM_CLIENTS // LM_SELECT
+    require("lm_train: the coverage sweep missed a client",
+            sorted(sum(hist["selected"][:sweep], [])) ==
+            list(range(LM_CLIENTS)))
+    ent = np.asarray(hist["bias_entropy"][-1])
+    require("lm_train: Ĥ not finite or of the wrong shape",
+            ent.shape == (LM_CLIENTS,) and bool(np.isfinite(ent).all()))
+    steps = LM_SELECT * LM_SEQS          # one epoch
+    step_ms = [r["local_s"] / steps * 1e3 for r in rec]
+    out = {"phase": "lm_train", "arch": res["cfg"].name,
+           "layers": res["cfg"].num_layers, "d_model": res["cfg"].d_model,
+           "vocab": res["cfg"].vocab_size,
+           "params": sum(t.numel() for t in _leaves(res["params"])),
+           "clients": LM_CLIENTS, "select": LM_SELECT, "rounds": LM_ROUNDS,
+           "seq_len": int(res["tokens"].shape[-1]) - 1,
+           "seconds": seconds, "init_s": res["init_s"],
+           "rounds_per_s": LM_ROUNDS / sum(hist["wall_s"]),
+           "wall_s": hist["wall_s"], "ms_per_local_step": step_ms,
+           "select_s": [r["select_s"] for r in rec],
+           "select_seconds": hist["select_seconds"],
+           "update_seconds": hist["update_seconds"],
+           "peak_memory_gb": peak / 1e9, "card_memory_gb": total / 1e9,
+           "selected": hist["selected"], "loss": hist["loss"],
+           "entropy_spread": float(ent.max() - ent.min()),
+           "entropy_last": ent.tolist(), "launches": launches}
+    out["cpu_replay"] = lm_replay(rec, sel)
+    out["cache_vs_plain"] = lm_cache_check(sel, dev)
+    out["step_profile"] = lm_step_profile(res, dev)
+    tokens = res["tokens"]
+    del res, sel
+    torch.cuda.empty_cache()
+    out["two_layer_cut"] = lm_cut(tokens, dev)
+    emit(out)
+    return launches
+
+
+def lm_replay(rec: list, card_sel) -> dict:
+    """The card run's selection replayed on the CPU with the plain
+    versions: a CPU shim of the same seed draws the same noise; each
+    round it selects, then observes the card's ids and Δb.  It must
+    pick the card's participants every round; its Ĥ is printed beside
+    the card's."""
+    cpu = make_selector("hics", num_clients=LM_CLIENTS,
+                        num_select=LM_SELECT, total_rounds=LM_ROUNDS,
+                        temperature=T_LM, num_classes=151_936, seed=0,
+                        device="cpu")
+    same = []
+    for t, r in enumerate(rec):
+        same.append(cpu.select(t) == r["ids"])
+        cpu.update(t, r["ids"], bias_updates=r["delta_b"])
+    require(f"lm_train: the CPU replay's participants differ: {same}",
+            all(same))
+    ent_cpu = torch.tensor(cpu.estimated_entropies())
+    ent_card = torch.tensor(card_sel.estimated_entropies())
+    return {"same_ids": same,
+            "entropy_max_abs_diff": float((ent_cpu - ent_card).abs().max())}
+
+
+def lm_cache_check(sel, dev) -> dict:
+    """The card selector's final state: its cache, built by the kernels
+    over the run and refreshed for the last cohort, against the plain
+    from-scratch build on the card (tolerances of phase kernels)."""
+    st = sel.state
+    _, dist, stats = ops.hics_selection_step_cached(
+        st.delta_b, st.dist_cache, st.row_stats, st.stale_ids, T_LM, LAM,
+        device=dev)
+    ent_p, dist_p = ref.selection_step_ref(st.delta_b, T_LM, LAM)
+    require("lm_train: cache not bit-symmetric",
+            bool(torch.equal(dist, dist.T)))
+    return {"dist": check("lm_train: cache vs plain", dist, dist_p,
+                          1e-5, 1e-5),
+            "entropy": check("lm_train: cached Ĥ vs plain", stats[:, 1],
+                             ent_p, 5e-5),
+            "norm": check("lm_train: cached norm vs plain", stats[:, 0],
+                          torch.linalg.vector_norm(st.delta_b, dim=-1),
+                          1e-5, 1e-5)}
+
+
+def lm_step_profile(res, dev) -> dict:
+    """Device time of one local step at full width (one sequence, the
+    copy of the params included) by ``torch.profiler``: the sum of the
+    kernels' own spans, the share in matrix products and the top
+    kernels; and its host-clock time."""
+    api = get_model(res["cfg"])
+    toks = res["tokens"][0][:1]
+    buf = tree_map(torch.empty_like, res["params"])
+
+    def step():
+        train.local_lm_update(api, res["params"], toks, 0.05, 1, out=buf)
+
+    iters = 2
+    spans = cuda_spans([step], iters)
+    by_name: dict = {}
+    for name, us in spans:
+        by_name[name] = by_name.get(name, 0.0) + us
+    total = sum(by_name.values())
+    gemm = sum(t for n, t in by_name.items()
+               if "gemm" in n.lower() or "gemv" in n.lower())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"host_ms": host_ms(step, reps=3),
+            "device_ms": total / iters / 1e3,
+            "matmul_ms": gemm / iters / 1e3,
+            "kernels": len(spans) / iters,
+            "top_kernels_ms": {n[:80]: t / iters / 1e3 for n, t in top}}
+
+
+def lm_cut(tokens, dev) -> dict:
+    """qwen2.5-3b cut to two layers at full width and vocabulary,
+    weights from seed 0 on the card, copied to the CPU: one client's
+    ``local_lm_update`` (client 0's 4 sequences, sgd lr 0.05, 1 epoch)
+    on the card and on the port's CPU from the same params.  The loss
+    within 1e-4 relative; each leaf's update (trained minus initial) —
+    the head's Δb and weight and every other — within 1e-3 of its
+    largest magnitude: the two sum the f32 matmuls in other orders,
+    and the clip scale 1/‖g‖ carries that relative difference (~1e-6)
+    into every update."""
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                              num_layers=LM_CUT_LAYERS,
+                              name=f"qwen2.5-3b-{LM_CUT_LAYERS}layers")
+    api = get_model(cfg)
+    card = api.init(0, device=dev)
+    cpu = _map(lambda t: t.cpu(), card)
+    toks = tokens[0]
+    t0 = time.perf_counter()
+    cpu_new, cpu_loss = train.local_lm_update(api, cpu, toks.cpu(), 0.05, 1)
+    cpu_s = time.perf_counter() - t0
+    card_new, card_loss = train.local_lm_update(api, card, toks, 0.05, 1)
+    a, b = float(card_loss), float(cpu_loss)
+    rel = abs(a - b) / abs(b)
+    require(f"lm_cut: loss {a} vs CPU {b} (rel {rel})",
+            rel <= LM_CUT_LOSS_TOL)
+
+    def update_err(path):
+        d_card = (_at(card_new, path) - _at(card, path)).cpu()
+        d_cpu = _at(cpu_new, path) - _at(cpu, path)
+        scale = float(d_cpu.abs().max())
+        err = float((d_card - d_cpu).abs().max())
+        require(f"lm_cut: {path} update off by {err} > "
+                f"{LM_CUT_UPDATE_TOL} x {scale}",
+                err <= LM_CUT_UPDATE_TOL * scale)
+        return {"max_abs_err": err, "max_abs_update": scale}
+
+    paths = ["/".join(p) for p in _paths(cpu)]
+    errs = {p: update_err(p) for p in paths}
+    return {"layers": LM_CUT_LAYERS, "seqs": int(toks.shape[0]),
+            "card_loss": a, "cpu_loss": b, "loss_rel_err": rel,
+            "delta_b": errs["lm_head/b"], "head_w": errs["lm_head/w"],
+            "worst_leaf_rel_err": max(e["max_abs_err"] / e["max_abs_update"]
+                                      for e in errs.values()
+                                      if e["max_abs_update"] > 0),
+            "cpu_seconds": cpu_s}
+
+
+def _paths(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,)
+
+
+def _at(tree, path: str):
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if argv not in ([], ["graph_rounds"]):
-        print("usage: chip_smoke.py [graph_rounds]", file=sys.stderr)
+    if argv not in ([], ["graph_rounds"], ["lm_train"]):
+        print("usage: chip_smoke.py [graph_rounds | lm_train]",
+              file=sys.stderr)
         return 2
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1862,14 +2123,17 @@ def main(argv) -> int:
                            if "registers" in ln or "spill" in ln]
                     for name, log in reports.items()}})
 
-    if argv == ["graph_rounds"]:       # the phase alone, its own host runs
-        graph_rounds_phase(dev, {})
+    if argv:                 # one phase alone (graph_rounds: its own host runs)
+        if argv == ["graph_rounds"]:
+            graph_rounds_phase(dev, {})
+        else:
+            lm_train_phase(dev)
         for f in failures:
             print("FAILED:", f, file=sys.stderr)
         return 1 if failures else 0
 
-    slice_cases, path_strip, modes, stats_timed, pair_timed = kernel_phase(
-        dev)
+    (slice_cases, path_strip, modes, stats_timed, pair_timed,
+     lm_strip) = kernel_phase(dev)
     server, hist, launches = slice_phase(dev)
     host_runs = {"hics": host_record(hist, server.state)}
     scratch_launches, host_runs["hics-scratch"] = from_scratch_phase(
@@ -1884,6 +2148,7 @@ def main(argv) -> int:
     res, serve_launches = serve_phase(dev)
     serve_parity_phase(res, dev)
     del res
+    lm_launches = lm_train_phase(dev)
 
     # the strip kernel's three epilogues, each counted on its own path:
     # arccos in the HiCS slice and its bf16 run, cosine in the cs run,
@@ -1960,6 +2225,11 @@ def main(argv) -> int:
         kern["launches_graph"] = graph_totals[kern["name"]]
         if kern["name"] in graph_variants:
             kern["launches_graph_by_variant"] = graph_variants[kern["name"]]
+        # phase lm_train: qwen2.5-3b's federated fine-tune
+        kern["launches_lm"] = lm_launches[kern["name"]]
+    # the arccos strip at the LM fine-tune's K2×N8×C151,936
+    strip["lm_path"] = {key: lm_strip[key] for key in keys + (
+        "bound_by", "max_abs_err", "unsplit_max_abs_err")}
     emit({"phase": "total", "seconds": time.perf_counter() - started})
     emit({"kernels": kernels})
     if failures:

@@ -5,8 +5,9 @@ of ``repro``): :class:`ModelConfig` with its sub-configs,
 ``resolved_head_dim()`` and ``reduced()`` as they are there, the
 assigned input shapes, and ``register`` / ``get_config``.  Each
 ``<arch>.py`` module of this package registers the configs the port
-runs: paper-cnn and paper-mlp (the HiCS-FL slice) and qwen2.5-3b (the
-serving slice).
+runs: paper-cnn and paper-mlp (the HiCS-FL slice), qwen2.5-3b (the
+serving slice and LM fine-tuning) and qwen3-8b (LM fine-tuning's
+default arch).
 """
 from __future__ import annotations
 

@@ -7,8 +7,9 @@
     divfl  : DivFL [2], greedy facility location on update distances
     fedcor : FedCor [28], GP over loss-history embeddings
 
-The port of the reference's ``core/selectors/baselines.py`` (the OO
-shims are not ported).  Each select takes the round's
+The port of the reference's ``core/selectors/baselines.py``, with its
+OO shims (``RandomSelector`` ... ``FedCorSelector``, over
+``base.ClientSelector``).  Each select takes the round's
 :class:`SelectNoise`; each branch test is a ``functional.cond``, one
 scalar read from the device in the host loop and none in the scanned
 driver's round step, where both branches run and must stay finite on
@@ -40,6 +41,7 @@ from repro_torch.backend import resolve_device
 from repro_torch.core.clustering import agglomerate_device
 from repro_torch.core.sampling import (_topk_stable, coverage_sweep_device,
                                        weighted_sample_device)
+from repro_torch.core.selectors.base import ClientSelector
 from repro_torch.core.selectors.functional import (FunctionalSelector,
                                                    Observations,
                                                    SelectNoise,
@@ -440,3 +442,54 @@ def fedcor_functional(num_clients: int, num_select: int, total_rounds: int,
 
     return FunctionalSelector("fedcor", frozenset({"loss_all"}), init,
                               select, update)
+
+
+# ---------------------------------------------------------------------------
+# OO shims
+# ---------------------------------------------------------------------------
+
+
+class RandomSelector(ClientSelector):
+    """FedProx-style multinomial sampling ∝ p_k, without replacement."""
+    name = "random"
+
+    def _make_functional(self, **kw):
+        return random_functional(**kw)
+
+
+class PowerOfChoiceSelector(ClientSelector):
+    """pow-d [8], ideal setting (App. A.1.2): d = N, the server polls
+    every client's current local loss each round."""
+    name = "pow-d"
+    requires = frozenset({"loss_all"})
+
+    def _make_functional(self, **kw):
+        return powd_functional(**kw)
+
+
+class ClusteredSamplingSelector(ClientSelector):
+    """Clustered Sampling [11] on full updates."""
+    name = "cs"
+    requires = frozenset({"full_sel"})
+
+    def _make_functional(self, **kw):
+        return cs_functional(**kw)
+
+
+class DivFLSelector(ClientSelector):
+    """DivFL [2]: greedy facility location; the ideal setting polls
+    every client, ``refresh="selected"`` the participants."""
+    name = "divfl"
+    requires = frozenset({"full_all"})
+
+    def _make_functional(self, **kw):
+        return divfl_functional(**kw)
+
+
+class FedCorSelector(ClientSelector):
+    """FedCor [28]: a GP over loss-history embeddings."""
+    name = "fedcor"
+    requires = frozenset({"loss_all"})
+
+    def _make_functional(self, **kw):
+        return fedcor_functional(**kw)

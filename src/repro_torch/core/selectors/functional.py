@@ -46,6 +46,21 @@ class SelectNoise(NamedTuple):
     cluster_pick: torch.Tensor
 
 
+def _gumbel(gen: torch.Generator, shape) -> torch.Tensor:
+    return -torch.empty(shape).exponential_(generator=gen).log()
+
+
+def draw_select_noise(gen: torch.Generator, n: int, k: int) -> SelectNoise:
+    """One round's :class:`SelectNoise` for N clients and a cohort of K
+    (M = K clusters), drawn on the CPU from ``gen`` in field order: the
+    server's draws, and the OO shim's when no noise is given."""
+    k = min(k, n)
+    return SelectNoise(cover=_gumbel(gen, (n,)),
+                       cluster=_gumbel(gen, (k, k)),
+                       client=_gumbel(gen, (k, n)),
+                       cluster_pick=_gumbel(gen, (k, n)))
+
+
 class Observations(NamedTuple):
     """What the server computed for the selector this round.
 
@@ -91,6 +106,16 @@ class FunctionalSelector(NamedTuple):
     feat_width: Optional[Callable[[int], int]] = None
 
 
+def state_entropies(fn: FunctionalSelector,
+                    state: SelectorState) -> torch.Tensor:
+    """(N,) Ĥ from a selector's state, or a (0,) tensor when the
+    selector does not estimate entropies: the one extraction shared by
+    the OO shim and the scanned round step."""
+    if fn.entropies is None:
+        return torch.zeros(0, device=state.weights.device)
+    return fn.entropies(state)
+
+
 def init_state(num_clients: int, weights=None, num_classes: int = 0,
                feat_dim: int = 0, hist_len: int = 0,
                dist_cache: bool = False, stale_len: int = 0,
@@ -127,8 +152,8 @@ def init_state(num_clients: int, weights=None, num_classes: int = 0,
 SELECTOR_LAYER = "queue 1: the rest of the selector layer"
 LOCAL_UPDATES = ("queue 1: the other local updates, momentum, and the "
                  "estimator's theory half")
-LM_FINE_TUNING = "queue 1: federated LM fine-tuning"
 TELEMETRY = "queue 1: telemetry"
+LM_SUBSTRATE = "queue 1: the rest of the LM substrate"
 
 
 def not_ported(name: str, value,

@@ -35,6 +35,7 @@ from repro_torch.core.clustering import (agglomerate_device,
 from repro_torch.core.hetero import estimate_entropy
 from repro_torch.core.sampling import (anneal_device, coverage_sweep_device,
                                        hierarchical_sample_device)
+from repro_torch.core.selectors.base import ClientSelector
 from repro_torch.core.selectors.functional import (FunctionalSelector,
                                                    Observations,
                                                    SelectNoise,
@@ -124,3 +125,18 @@ def hics_functional(num_clients: int, num_select: int, total_rounds: int,
 
     return FunctionalSelector("hics", frozenset({"bias_sel"}), init,
                               select, update, entropies=entropies)
+
+
+class HiCSFLSelector(ClientSelector):
+    """Algorithm 1, the OO shim over :func:`hics_functional`."""
+
+    name = "hics"
+    requires = frozenset({"bias_sel"})
+
+    def _make_functional(self, **kw) -> FunctionalSelector:
+        return hics_functional(**kw)
+
+    @property
+    def _delta_b(self) -> torch.Tensor:
+        """The state's (N, C) Δb buffer."""
+        return self.state.delta_b

@@ -2,7 +2,9 @@
 from repro_torch.data.synthetic import (SyntheticSpec,
                                         client_label_distributions,
                                         make_classification_data,
-                                        make_train_test, pad_and_stack)
+                                        make_lm_streams, make_train_test,
+                                        pad_and_stack)
 
 __all__ = ["SyntheticSpec", "client_label_distributions",
-           "make_classification_data", "make_train_test", "pad_and_stack"]
+           "make_classification_data", "make_lm_streams", "make_train_test",
+           "pad_and_stack"]

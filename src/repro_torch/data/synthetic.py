@@ -1,9 +1,11 @@
-"""Synthetic Gaussian-mixture classification data (numpy).
+"""Synthetic datasets (numpy): a copy of the reference's
+``data/synthetic.py``.
 
-A copy of the reference's ``data/synthetic.py`` classification half:
-class c has a random prototype μ_c ∈ R^d and a low-rank within-class
-subspace, and samples are μ_c + Us + noise.  The same ``rng`` gives the
-same arrays as the reference, bit for bit.
+Classification: class c has a random prototype μ_c ∈ R^d and a
+low-rank within-class subspace, and samples are μ_c + Us + noise.
+LM streams: per-client token streams whose topic mixture is
+Dirichlet-skewed, the LM analogue of a label distribution.  The same
+``rng`` gives the same arrays as the reference, bit for bit.
 """
 from __future__ import annotations
 
@@ -52,6 +54,32 @@ def make_train_test(rng: np.random.Generator, spec: SyntheticSpec,
     return train, test, protos
 
 
+def make_lm_streams(rng: np.random.Generator, vocab: int, seq_len: int,
+                    num_clients: int, seqs_per_client: int,
+                    alphas: Sequence[float],
+                    num_topics: int = 8) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-client token streams with Dirichlet-skewed topic mixtures.
+
+    Returns (tokens (N, seqs, seq_len) i32, topic_mix (N, num_topics)).
+    Each topic is a unigram distribution over the vocab; a client's
+    next-token distribution is its topic mixture.  The clients are
+    split into ``len(alphas)`` groups, group g drawing its mixtures with
+    concentration ``alphas[g]``.
+    """
+    groups = np.array_split(np.arange(num_clients), len(alphas))
+    topic_logits = rng.normal(size=(num_topics, vocab)) * 2.0
+    topic_p = _softmax(topic_logits, axis=-1)
+    mixes = np.zeros((num_clients, num_topics))
+    for g, alpha in zip(groups, alphas):
+        for k in g:
+            mixes[k] = rng.dirichlet(np.full(num_topics, alpha))
+    toks = np.zeros((num_clients, seqs_per_client, seq_len), dtype=np.int32)
+    for k in range(num_clients):
+        p = mixes[k] @ topic_p
+        toks[k] = rng.choice(vocab, size=(seqs_per_client, seq_len), p=p)
+    return toks, mixes
+
+
 def client_label_distributions(client_labels: Sequence[np.ndarray],
                                num_classes: int) -> np.ndarray:
     """Empirical per-client label distribution matrix (N, C)."""
@@ -77,3 +105,9 @@ def pad_and_stack(xs: List[np.ndarray], ys: List[np.ndarray]
         s = len(x)
         X[i, :s], Y[i, :s], M[i, :s] = x, y, 1.0
     return X, Y, M
+
+
+def _softmax(x, axis=-1):
+    x = x - np.max(x, axis=axis, keepdims=True)
+    e = np.exp(x)
+    return e / np.sum(e, axis=axis, keepdims=True)

@@ -1,9 +1,9 @@
-"""Client-side LocalUpdate (Algorithm 1 line 3): fedavg with sgd, and
-the server's all-clients loss poll.
+"""Client-side LocalUpdate (Algorithm 1 line 3): fedavg with sgd or
+adam, and the server's all-clients loss poll.
 
-The port of the reference's ``fed/client.py`` for fedavg with sgd.
+The port of the reference's ``fed/client.py`` for fedavg.
 :class:`LocalSpec` takes the reference's fields and names; the other
-algorithms and optimizers raise ``NotImplementedError`` naming the
+algorithms and sgd-momentum raise ``NotImplementedError`` naming the
 ROADMAP.md item that ports them.  Every
 client's data is padded to a common (S_max, d) with a sample mask, and
 the whole cohort of K clients trains at once: ``torch.func.vmap`` of
@@ -19,9 +19,8 @@ from typing import Callable
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.core.selectors.functional import (LM_FINE_TUNING,
-                                                   LOCAL_UPDATES, not_ported)
-from repro_torch.optim import apply_updates, sgd, tree_map
+from repro_torch.core.selectors.functional import LOCAL_UPDATES, not_ported
+from repro_torch.optim import adam, apply_updates, sgd, tree_map
 
 ALGOS = ("fedavg", "fedprox", "feddyn", "moon")
 OPTIMIZERS = ("sgd", "momentum", "adam")
@@ -31,7 +30,7 @@ OPTIMIZERS = ("sgd", "momentum", "adam")
 class LocalSpec:
     """The reference's ``LocalSpec``: an unknown ``algo`` or
     ``optimizer`` raises ``ValueError``, as there; a known one the port
-    does not run yet (every algo but fedavg, every optimizer but sgd)
+    does not run yet (every algo but fedavg, the momentum optimizer)
     raises ``NotImplementedError``.  ``mu`` and ``moon_tau`` are read
     only by those algorithms."""
     algo: str = "fedavg"
@@ -51,8 +50,6 @@ class LocalSpec:
             raise not_ported("algo", self.algo, LOCAL_UPDATES)
         if self.optimizer == "momentum":
             raise not_ported("optimizer", self.optimizer, LOCAL_UPDATES)
-        if self.optimizer == "adam":
-            raise not_ported("optimizer", self.optimizer, LM_FINE_TUNING)
 
 
 def masked_ce(logits: torch.Tensor, labels: torch.Tensor,
@@ -73,8 +70,9 @@ def make_local_update(apply_fn: Callable, spec: LocalSpec) -> Callable:
     for a cohort: x (K, S, d), y and mask (K, S), perms (K, epochs, S)
     int64, lr_scale a 0-d f32 tensor.  Returns (K-stacked local params,
     {"train_loss": (K,)}), the loss being the mean over epochs of the
-    mean over steps, as in the reference."""
-    opt = sgd(spec.lr)
+    mean over steps, as in the reference.  The optimizer state is made
+    anew in each call, as the reference's ``opt.init(params0)``."""
+    opt = {"sgd": sgd, "adam": adam}[spec.optimizer](spec.lr)
 
     def loss_fn(params, xb, yb, mb):
         return masked_ce(apply_fn(params, xb), yb, mb)
@@ -100,12 +98,14 @@ def make_local_update(apply_fn: Callable, spec: LocalSpec) -> Callable:
             for b in range(nb):
                 grads, loss = cohort_grad(params, xb[:, b], yb[:, b],
                                           mb[:, b])
-                # a fully masked (padding-only) batch is a no-op
+                # a fully masked (padding-only) batch gets zero grads: a
+                # no-op under sgd, while adam's moments and count still
+                # advance, as in the reference
                 live = (mb[:, b].sum(dim=-1) > 0).float()
                 grads = tree_map(
                     lambda g: g * live.view(-1, *([1] * (g.dim() - 1))),
                     grads)
-                updates, opt_state = opt.update(grads, opt_state,
+                updates, opt_state = opt.update(grads, opt_state, params,
                                                 lr_scale=lr_scale)
                 params = apply_updates(params, updates)
                 step_losses.append(loss)

@@ -57,7 +57,9 @@ from repro_torch.core.selectors import (Observations, SelectNoise,
                                         make_functional)
 from repro_torch.core.selectors.functional import (TELEMETRY,
                                                    both_branches,
-                                                   not_ported, round_index)
+                                                   draw_select_noise,
+                                                   not_ported, round_index,
+                                                   state_entropies)
 from repro_torch.fed.client import (LocalSpec, make_eval_fn,
                                     make_local_update, make_loss_poll)
 from repro_torch.kernels import build as kernel_build
@@ -136,10 +138,6 @@ def make_grad_all(apply_fn: Callable, local: LocalSpec) -> Callable:
         return flatten_params(new_params, lead=1) - flatten_params(params)
 
     return grad_all
-
-
-def _gumbel(gen: torch.Generator, shape) -> torch.Tensor:
-    return -torch.empty(shape).exponential_(generator=gen).log()
 
 
 def _copy_into(static, value) -> None:
@@ -265,10 +263,7 @@ class FederatedServer:
         n = cfg.num_clients
         k = min(cfg.num_select, n)
         s_max = self.x.shape[1]
-        noise = SelectNoise(cover=_gumbel(gen, (n,)),
-                            cluster=_gumbel(gen, (k, k)),
-                            client=_gumbel(gen, (k, n)),
-                            cluster_pick=_gumbel(gen, (k, n)))
+        noise = draw_select_noise(gen, n, k)
 
         def perms(rows: int, epochs: int) -> torch.Tensor:
             return torch.stack([
@@ -363,17 +358,14 @@ class FederatedServer:
         """The scanned driver's round: ``((params, state, t), draws) ->
         ((params, state, t + 1), (ids, mean train loss, Ĥ or (0,)))``,
         :meth:`_round` with every ``cond`` on the device."""
-        ent = self.selector.entropies
-
         def round_step(carry, rd: RoundDraws):
             params, state, t = carry
             with both_branches():
                 params, state, ids, metrics = self._round(params, state, t,
                                                           rd)
-            h = (ent(state) if ent is not None
-                 else torch.zeros(0, device=self.device))
             return ((params, state, t + 1),
-                    (ids, metrics["train_loss"].mean(), h))
+                    (ids, metrics["train_loss"].mean(),
+                     state_entropies(self.selector, state)))
 
         return round_step
 

@@ -1,8 +1,10 @@
 """Step builders of the serving entry point: prefill_step and serve_step
 (one-token decode + greedy sample), as the reference's
 ``launch/steps.py`` builds them.  Greedy sampling takes the first
-maximum (``torch.argmax``, as ``jnp.argmax``).  The train step waits for
-the LM training slice."""
+maximum (``torch.argmax``, as ``jnp.argmax``).  The reference's
+``make_train_step`` and ``make_init_state`` serve only its dry-run and
+multi-host drivers, which are not ported; the LM fine-tuning driver
+(``launch/train.py``) has its own local update."""
 from __future__ import annotations
 
 import torch

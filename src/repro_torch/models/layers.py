@@ -243,13 +243,14 @@ def _project_qkv(p, x, cfg, positions):
     return q, k, v
 
 
-def attention_block(p, x, cfg, *, window: int = 0):
+def attention_block(p, x, cfg, *, window: int = 0, q_chunk: int = 128):
     """Causal self-attention over x (B, T, d) at positions 0..T-1.
     Returns (out, (k, v)): the roped K and V are the prefill's cache."""
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = full_attention(q, k, v, causal=True, window=window)
+    out = full_attention(q, k, v, causal=True, window=window,
+                         q_chunk=q_chunk)
     out = out.reshape(b, t, -1) @ p["wo"].to(x.dtype)
     return out, (k, v)
 

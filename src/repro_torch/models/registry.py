@@ -3,12 +3,12 @@ covers, as the reference's ``models/registry.py``.
 
   api = get_model("qwen2.5-3b")
   params = api.init(seed, device="cuda")
+  loss, metrics = api.loss(params, batch)
   logits, cache = api.prefill(params, {"tokens": tokens}, cache_extra=n)
   logits, cache = api.decode_step(params, cache, {"token": t, "pos": p})
 
 Only ``kind == "dense"`` is ported; MoE, VLM, SSM, hybrid and
-encoder-decoder configs raise ``NotImplementedError``.  The LM loss
-waits for the LM training slice.
+encoder-decoder configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from repro_torch.models.transformer import cache_geometry
 class ModelApi:
     cfg: ModelConfig
     init: Callable[..., Any]
+    loss: Callable[..., Any]
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
     init_cache: Callable[..., Any]
@@ -56,6 +57,7 @@ def _transformer_api(cfg) -> ModelApi:
                               ring=ring)
 
     return ModelApi(cfg=cfg, init=init,
+                    loss=partial(TF.loss_fn, cfg=cfg),
                     prefill=partial(TF.prefill, cfg=cfg),
                     decode_step=decode_step, init_cache=init_cache)
 

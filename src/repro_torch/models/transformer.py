@@ -1,21 +1,27 @@
-"""Decoder-only transformer LM, the dense case: init, forward, prefill
-and one-token decode against a bf16 KV cache.
+"""Decoder-only transformer LM, the dense case: init, forward, the
+training loss, prefill and one-token decode against a bf16 KV cache.
 
 A port of the reference's ``models/transformer.py`` for configs of
 ``kind == "dense"``; the MoE and VLM branches are not ported and raise.
 Layers are stacked on a leading axis as in the reference (its vmapped
-init), and run in a Python loop over that axis in place of ``lax.scan``.
-Compute is f32; the cache is bf16, as the reference's ``prefill`` and
-serve path keep it.  Unlike the reference, ``decode_step`` writes the
-new token's K/V into the cache tensors in place (no copy of the cache
-per token) and returns the same dict.
+init), and run in a Python loop over that axis in place of ``lax.scan``:
+each stacked leaf is split once a forward (``torch.unbind``), whose
+backward is one ``stack``, where indexing each layer would write a
+zero-filled gradient of the whole stacked leaf per layer.  Compute is
+f32; the cache is bf16, as the reference's ``prefill`` and serve path
+keep it.  Unlike the reference, ``decode_step`` writes the new token's
+K/V into the cache tensors in place (no copy of the cache per token)
+and returns the same dict.  The reference's ``jax.checkpoint`` of each
+layer does not change the numbers; the port keeps the activations.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.selectors.functional import LM_SUBSTRATE, not_ported
 from repro_torch.models import layers as L
+from repro_torch.models.losses import chunked_lm_loss
 
 _NOT_PORTED = ("moe", "vlm", "ssm", "rwkv", "hybrid", "encdec")
 
@@ -91,10 +97,12 @@ def params_from_jax(tree, device="cuda"):
     return torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
 
 
-def layer_params(layers: dict, i: int) -> dict:
-    """The params of layer ``i`` of a stacked tree (views)."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in layers.items()}
+def unstack_layers(layers: dict, n: int) -> list:
+    """The per-layer param dicts of a stacked tree: each stacked leaf
+    split once into ``n`` views (``torch.unbind``)."""
+    split = {k: unstack_layers(v, n) if isinstance(v, dict)
+             else torch.unbind(v, 0) for k, v in layers.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
 def head_weights(params, cfg):
@@ -121,25 +129,55 @@ def _embed(params, tokens, cfg):
     return x
 
 
-def _layer_apply(lp, x, cfg):
+def _layer_apply(lp, x, cfg, q_chunk):
     h = L.apply_norm(x, lp["ln1"], cfg.norm)
     a, kv = L.attention_block(lp["attn"], h, cfg,
-                              window=cfg.sliding_window)
+                              window=cfg.sliding_window, q_chunk=q_chunk)
     x = x + a
     h = L.apply_norm(x, lp["ln2"], cfg.norm)
     return x + L.mlp_block(lp["mlp"], h, cfg.mlp), kv
 
 
-def forward(params, tokens, cfg):
+def forward(params, tokens, cfg, *, q_chunk: int = 128):
     """Full-span f32 forward over tokens (B, T).  Returns (hidden
     (B, T, d) after the final norm, [(k, v) of each layer])."""
     require_dense(cfg)
     x = _embed(params, tokens, cfg)
     kvs = []
-    for i in range(cfg.num_layers):
-        x, kv = _layer_apply(layer_params(params["layers"], i), x, cfg)
+    for lp in unstack_layers(params["layers"], cfg.num_layers):
+        x, kv = _layer_apply(lp, x, cfg, q_chunk)
         kvs.append(kv)
     return L.apply_norm(x, params["final_norm"], cfg.norm), kvs
+
+
+# ---------------------------------------------------------------------------
+# Train loss
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(params, batch, cfg, *, dtype=torch.float32, q_chunk: int = 128,
+            loss_chunk: int = 512):
+    """The LM loss of ``batch`` {'tokens', 'targets' (B, S), optional
+    'loss_mask'}: the f32 forward, then the chunked cross-entropy of
+    the head.  Returns (loss, {ce_loss, accuracy, tokens, loss}).  A
+    compute dtype other than f32, a 'patches' input and MoE configs are
+    not ported."""
+    if dtype != torch.float32:
+        raise not_ported("dtype", dtype, LM_SUBSTRATE)
+    if batch.get("patches") is not None:
+        raise not_ported("patches", "(VLM prefix)", LM_SUBSTRATE)
+    if cfg.moe is not None:
+        raise not_ported("moe", cfg.moe, LM_SUBSTRATE)
+    targets = batch["targets"]
+    mask = batch.get("loss_mask")
+    x, _ = forward(params, batch["tokens"], cfg, q_chunk=q_chunk)
+    if mask is None:
+        mask = torch.ones(targets.shape, device=x.device)
+    w, b = head_weights(params, cfg)
+    loss, metrics = chunked_lm_loss(x, w, b, targets, mask,
+                                    chunk=loss_chunk)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -184,8 +222,8 @@ def decode_step(params, cache, batch, cfg, *, window: int = 0,
     require_dense(cfg)
     token, pos = batch["token"], int(batch["pos"])
     x = _embed(params, token, cfg)
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
+    layers = unstack_layers(params["layers"], cfg.num_layers)
+    for i, lp in enumerate(layers):
         h = L.apply_norm(x, lp["ln1"], cfg.norm)
         a, _ = L.attention_decode_block(
             lp["attn"], h, cfg, cache["k"][i], cache["v"][i], pos,

@@ -1,5 +1,11 @@
-"""Optimizers of the port (sgd; momentum and adam are still to port)."""
-from repro_torch.optim.optimizers import (Optimizer, apply_updates, sgd,
-                                          tree_map)
+"""Optimizers of the port: sgd and adam, global-norm clipping, and the
+in-place forms of the LM fine-tuning driver (momentum is still to
+port)."""
+from repro_torch.optim.optimizers import (Optimizer, adam, apply_updates,
+                                          clip_by_global_norm,
+                                          clip_by_global_norm_, global_norm,
+                                          sgd, tree_leaves, tree_map)
 
-__all__ = ["Optimizer", "apply_updates", "sgd", "tree_map"]
+__all__ = ["Optimizer", "adam", "apply_updates", "clip_by_global_norm",
+           "clip_by_global_norm_", "global_norm", "sgd", "tree_leaves",
+           "tree_map"]

@@ -263,8 +263,6 @@ def test_unported_local_and_driver_options_raise():
                (lambda: LocalSpec(algo="feddyn", mu=0.01), local),
                (lambda: LocalSpec(algo="moon", moon_tau=0.2), local),
                (lambda: LocalSpec(optimizer="momentum"), local),
-               (lambda: LocalSpec(optimizer="adam"),
-                "queue 1: federated LM fine-tuning"),
                (lambda: FedConfig(telemetry=("selection",)),
                 "queue 1: telemetry"),
                (lambda: build(ExperimentSpec(telemetry=["training"]),
@@ -282,6 +280,7 @@ def test_unported_local_and_driver_options_raise():
     cfg = FedConfig(local=spec, jit_rounds=False, telemetry=())
     assert not cfg.jit_rounds and cfg.telemetry == ()
     assert FedConfig(jit_rounds=True).jit_rounds      # ported
+    assert LocalSpec(optimizer="adam").optimizer == "adam"    # ported
 
 
 def test_hics_bf16_run_picks_jax_participants():

@@ -15,7 +15,9 @@ the device.  Held here, on the reference's round-loop spec
     horizon ``tests/test_torch_baselines.py`` measured for it;
 (c) the round step built once across four segments;
 (d) the round step reading nothing on the host;
-(e) the state written back: a host-loop round follows a scanned run.
+(e) the state written back: a host-loop round follows a scanned run;
+(f) ``LocalSpec(optimizer="adam")``: the scanned driver bit-equal to
+    the host loop.
 
 Each test loops over its cases (``torch_parity.each``).
 """
@@ -31,6 +33,7 @@ from repro_torch.core.selectors.functional import both_branches
 from repro_torch.data import SyntheticSpec
 from repro_torch.fed import ExperimentSpec, LocalSpec, build
 from repro_torch.models import params_from_jax
+from repro_torch.optim import tree_leaves
 from torch_parity import JaxKeyChain, each, to_np
 
 #: (selector, selector_kw) of every run the port's drivers take
@@ -56,11 +59,13 @@ def _one_thread():
     torch.set_num_threads(threads)
 
 
-def _spec(selector, jit_rounds, rounds=20, selector_kw=None):
+def _spec(selector, jit_rounds, rounds=20, selector_kw=None,
+          optimizer="sgd"):
     return ExperimentSpec(
         arch="paper-mlp", num_clients=12, num_select=3, rounds=rounds,
         alphas=(0.05, 5.0), selector=selector, selector_kw=selector_kw,
-        local=LocalSpec(lr=0.1, epochs=2, batch_size=32),
+        local=LocalSpec(optimizer=optimizer, lr=0.1, epochs=2,
+                        batch_size=32),
         samples_train=600, samples_test=200, eval_every=5, seed=0,
         jit_rounds=jit_rounds)
 
@@ -88,6 +93,22 @@ def test_scan_matches_host_loop_hics_20_rounds():
     """(a) HiCS, incremental and from scratch, over 20 rounds: four
     coverage rounds, then ward, in both drivers."""
     each(_host_vs_scan, [20], *zip(*HICS))
+
+
+def test_scan_matches_host_loop_adam_bit_equal():
+    """``LocalSpec(optimizer="adam")`` through both drivers, 10 rounds
+    of HiCS: the scanned round step makes adam's state (moments and a
+    0-d int32 count) inside the round, and every participant, train
+    loss, Ĥ and final param equals the host loop's bit for bit."""
+    servers = [build(_spec("hics", jit, 10, optimizer="adam"),
+                     device="cpu")[0] for jit in (False, True)]
+    host, scan = (s.run() for s in servers)
+    assert scan["selected"] == host["selected"]
+    assert len(scan["selected"]) == 10
+    assert scan["train_loss"] == host["train_loss"]
+    assert scan["bias_entropy"] == host["bias_entropy"]
+    for a, b in zip(*(tree_leaves(s.params) for s in servers)):
+        assert torch.equal(a, b)
 
 
 def test_scan_matches_host_loop_baselines_12_rounds():

@@ -6,7 +6,9 @@ tensors.  :class:`JaxKeyChain` evaluates ``jax.random`` on exactly the
 keys the reference's host-loop server would use
 (``fed/server.py:170,270-273,298-301``, ``core/sampling.py:96-116,
 144-150``, ``core/selectors/baselines.py:218``,
-``fed/client.py:127,151``) and hands the same numbers to the port.
+``fed/client.py:127,151``) and hands the same numbers to the port;
+:class:`ShimKeyChain` does the same for the reference's OO selector
+shim, which draws from a key chain of its own.
 """
 from __future__ import annotations
 
@@ -102,3 +104,19 @@ class JaxKeyChain:
         return RoundDraws(select_noise(k_sel, self.n, self.k, self.m),
                           epoch_perms(k_loc, self.k, self.epochs,
                                       self.s_max), grad_perms)
+
+
+class ShimKeyChain:
+    """Replays the reference OO shim's own key chain
+    (``core/selectors/base.py:52-53,77``): ``PRNGKey(seed)`` split once
+    for the state's init, then once for each ``select``.  Call it with
+    the round index for that round's :class:`SelectNoise`."""
+
+    def __init__(self, seed: int, n: int, k: int, m=None):
+        self.key, _ = jax.random.split(jax.random.PRNGKey(seed))
+        self.n, self.k = n, k
+        self.m = min(k, n) if m is None else m
+
+    def __call__(self, t: int) -> SelectNoise:
+        self.key, sub = jax.random.split(self.key)
+        return select_noise(sub, self.n, self.k, self.m)
