@@ -35,7 +35,17 @@ loop's participants and, for HiCS, its cache bit for bit, the kernels'
 launches on the graph path, rounds/s beside the host loop's, device ms
 a replay and the device's busy share of the HiCS run's segments
 (``python3 chip_smoke.py graph_rounds`` runs that phase alone, with
-host-loop runs of its own).  Then the serving
+host-loop runs of its own).  Phase ``local_algos`` (alone: ``python3
+chip_smoke.py local_algos``) runs the slice's spec with the paper's
+other local updates (fedprox, feddyn and moon with sgd, fedavg with
+sgd-momentum, fedprox with adam) and HiCS's other clusterings (average
+linkage at M = 10, complete at M = 3 from scratch through pairwise,
+single at M = K): each run's kernels, rounds/s and round split, its
+first rounds against the CPU (teacher-forced loss and, for FedDyn and
+Moon, per-client extras), for the linkage runs every select of the 14
+rounds against the plain select on the card's state, and the FedDyn
+and Moon runs again through the scanned driver, bit-equal to the host
+loop.  Then the serving
 slice: the two LM kernels (hetero_entropy, decode_attention) against
 their plain versions, the entropy kernel's path through
 ``ops.estimate_entropies``, qwen2.5-3b at full width and depth through
@@ -48,7 +58,9 @@ federated fine-tuning of qwen2.5-3b at full width and depth through
 memory and ms a local step, the selection replayed on the CPU from the
 card's Δb, the final cache against the plain versions, a profile of one
 local step, and a two-layer cut's local update on the card against the
-port's CPU run.
+port's CPU run.  Last, phase ``finetune_example`` (alone: ``python3
+chip_smoke.py finetune_example``): ``repro_torch.examples.
+federated_finetune`` at its ~100M default, cut to 6 rounds.
 Prints one JSON line per phase, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": ...}``.  Exits non-zero, with no result
 line, without a CUDA device or when any check fails.
@@ -92,7 +104,7 @@ from repro_torch.core.selectors.baselines import (  # noqa: E402
     _l2_scratch, facility_location)
 from repro_torch.data import SyntheticSpec  # noqa: E402
 from repro_torch.fed import (ExperimentSpec, LocalSpec, build,  # noqa: E402
-                             flatten_params)
+                             flatten_params, make_local_update)
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.fused_stats import (  # noqa: E402
@@ -106,6 +118,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_kernel, kernel_splits)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import make_selector  # noqa: E402
+from repro_torch.examples import federated_finetune  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.optim import tree_map  # noqa: E402
@@ -142,6 +155,8 @@ KERNELS = {
 }
 
 failures: list = []
+#: the card's name and power limit, as nvidia-smi reads them
+CARD = None
 
 
 def emit(obj) -> None:
@@ -728,7 +743,7 @@ def round_split(server) -> dict:
     t = ROUNDS
     draws = server.draw_round(t)
     ids, _ = server.selector.select(server.state, t, draws.select)
-    new_params, _ = server.local_update(t, ids, draws.perms)
+    new_params, _, _ = server.local_update(t, ids, draws.perms)
     return {
         "select_ms": host_ms(lambda: server.selector.select(
             server.state, t, draws.select)),
@@ -742,23 +757,37 @@ def round_split(server) -> dict:
 
 
 def first_rounds_vs_cpu(spec, dev, hist, tag: str,
-                        horizon: int = CPU_ROUNDS) -> dict:
+                        horizon: int = CPU_ROUNDS,
+                        select_rounds: int = CPU_ROUNDS,
+                        one_step: bool = False) -> dict:
     """The card run's first ``CPU_ROUNDS`` rounds against the port's own
     CPU run of the same spec.
 
     Participants, free-running: the CPU run picks the card run's clients
     in each of the first ``horizon`` rounds.  Then, teacher-forced, a
-    second card run takes the same rounds one at a time, and in each the
-    plain select on the CPU, given the card's selector state and noise,
-    must pick the card's clients, and the cohort's update on the CPU
-    from the card's params at the round's start, with the same ids and
-    permutations, must give the card's train loss within 1e-3 relative.
-    The free-running train losses are printed, not held to a tolerance:
-    paper-cnn's local training grows a last-bit difference (another
-    summation order on the card) to ~1e-3 of the loss within two rounds
+    second card run takes the rounds one at a time, and in each of the
+    first ``select_rounds`` the plain select on the CPU, given the card's
+    selector state and noise, must pick the card's clients (past the
+    coverage sweep, the clustered selects on the card's own cache); in
+    each of the first ``CPU_ROUNDS`` the cohort's update on the CPU from
+    the card's params and per-client extras at the round's start, with
+    the same ids and permutations, must give the card's train loss
+    within 1e-3 relative.  Where the run keeps per-client extras, the
+    card's extras after the round must be its own cohort update's
+    written into the cohort's rows, bit for bit, and the CPU's
+    teacher-forced extras are printed beside the card's.  With
+    ``one_step``, the cohort's first sgd step (its first batch) on the
+    CPU from the card's round-start params and extras must move each
+    leaf of the params and of the extras as the card's does, within
+    1e-3 of the leaf's largest move.
+    The free-running train losses and the whole round's params and
+    extras are printed, not held to a tolerance: paper-cnn's local
+    training grows a last-bit difference to ~1e-3 of the loss within
+    two rounds and to ~1e-2 of the params within one round's 62 steps
     (on the CPU alone, params perturbed by 1e-6 relative move round 1's
-    loss by 1.5e-3), so that comparison measures the chaos of training
-    rather than the port."""
+    loss by 1.5e-3; a round's update in f32 is 2e-2 of the params' scale
+    from the same update in f64: ``tools/local_chaos.py``), so those
+    comparisons measure the chaos of training rather than the port."""
     t0 = time.perf_counter()
     short = dataclasses.replace(spec, rounds=CPU_ROUNDS)
     cpu_hist = build(short, device="cpu")[0].run()
@@ -766,47 +795,127 @@ def first_rounds_vs_cpu(spec, dev, hist, tag: str,
             cpu_hist["selected"][:horizon] == hist["selected"][:horizon])
     free = [abs(a - b) / abs(b) for a, b in
             zip(hist["train_loss"], cpu_hist["train_loss"])]
-    card, cpu = build(short, device=dev)[0], build(short, device="cpu")[0]
-    forced, forced_ids = [], []
-    for t in range(CPU_ROUNDS):
+    forced_spec = spec if select_rounds > CPU_ROUNDS else short
+    card = build(forced_spec, device=dev)[0]
+    cpu = build(forced_spec, device="cpu")[0]
+    forced, forced_ids, extras_err, step_err = [], [], [], []
+    writeback, clustered = [], 0
+    for t in range(select_rounds):
         rd = card.draw_round(t)
-        params = {k: {kk: v.cpu() for kk, v in p.items()}
-                  for k, p in card.params.items()}
+        p0, e0 = card.params, card.extras      # replaced, never written
+        params, extras = _tree_cpu(p0), _tree_cpu(e0)
+        clustered += int(card.state.unseen_count) == 0
         ids_cpu, _ = cpu.selector.select(_cpu(card.state), t,
                                          _cpu(rd.select))
         ids, metrics = card.step(t, rd)
+        forced_ids.append(ids_cpu.tolist() == ids.tolist())
+        if t >= CPU_ROUNDS:
+            continue
         cpu.params = params
-        _, m_cpu = cpu.local_update(t, ids.cpu(), rd.perms.cpu())
+        _, ex_cpu, m_cpu = cpu.local_update(t, ids.cpu(), rd.perms.cpu(),
+                                            extras=extras)
         a = float(metrics["train_loss"].mean())
         b = float(m_cpu["train_loss"].mean())
         forced.append(abs(a - b) / abs(b))
-        forced_ids.append(ids_cpu.tolist() == ids.tolist())
+        idx = ids.long()
+        if e0:
+            _, ex_card, _ = card.local_update(t, ids, rd.perms, p0, e0)
+            want = tree_map(lambda e, v: e.index_copy(0, idx, v), e0,
+                            ex_card)
+            writeback.append(all(torch.equal(x, y) for x, y in zip(
+                _leaves(card.extras), _leaves(want))))
+            after = tree_map(lambda e, v: e.index_copy(0, idx.cpu(), v),
+                             extras, ex_cpu)
+            extras_err.append(_leaf_rel_err(_tree_cpu(card.extras), after))
+        if one_step:
+            step_err.append(one_step_vs_cpu(card, cpu, idx, rd, p0, e0))
     require(f"{tag}: the CPU's select on the card's state differs",
             all(forced_ids))
     require(f"{tag}: train loss differs from the CPU's on the card's params "
             f"by {max(forced)}", max(forced) <= 1e-3)
-    return {"rounds": CPU_ROUNDS, "participants_horizon": horizon,
-            "cpu_selected": cpu_hist["selected"],
-            "cpu_train_loss": cpu_hist["train_loss"],
-            "free_running_rel_loss_diff": free,
-            "teacher_forced_rel_loss_diff": forced,
-            "teacher_forced_same_ids": forced_ids,
-            "seconds": time.perf_counter() - t0}
+    require(f"{tag}: extras not written back as the cohort's update",
+            all(writeback))
+    worst = max((max(e.values()) for e in step_err), default=0.0)
+    require(f"{tag}: one step moves the params or extras otherwise than "
+            f"on the CPU, by {worst} of the largest move", worst <= 1e-3)
+    out = {"rounds": CPU_ROUNDS, "participants_horizon": horizon,
+           "cpu_selected": cpu_hist["selected"],
+           "cpu_train_loss": cpu_hist["train_loss"],
+           "free_running_rel_loss_diff": free,
+           "teacher_forced_rel_loss_diff": forced,
+           "teacher_forced_same_ids": forced_ids,
+           "seconds": time.perf_counter() - t0}
+    if card.extras:
+        out["extras_written_back"] = writeback
+        out["teacher_forced_round_extras_rel_err"] = extras_err
+    if one_step:
+        out["one_step_rel_err"] = step_err
+    if select_rounds > CPU_ROUNDS:
+        out["clustered_selects_vs_plain"] = clustered
+    return out
+
+
+def one_step_vs_cpu(card, cpu, idx, rd, p0, e0) -> dict:
+    """The cohort's first step of the round (its first batch of epoch
+    0) from the card's round-start params ``p0`` and extras ``e0``, on
+    the card and on the CPU: the largest over the leaves of the params'
+    and of the extras' moves' difference, each over the leaf's largest
+    move on the CPU."""
+    local = dataclasses.replace(card.cfg.local, epochs=1)
+    bs = min(local.batch_size, card.x.shape[1])
+    perm = rd.perms[:, 0, :bs]
+    k = idx.shape[0]
+    ar = torch.arange(k, device=idx.device)[:, None]
+    x = card.x[idx][ar, perm]
+    y = card.y[idx][ar, perm]
+    mask = card.mask[idx][ar, perm]
+    one = torch.arange(bs, device=idx.device).expand(k, 1, bs)
+    lr = torch.ones((), device=idx.device)
+    moves = {}
+    for side, srv in (("card", card), ("cpu", cpu)):
+        lu = make_local_update(srv.apply_fn, local, srv.features_fn)
+        dev = srv.device
+        p, e = _tree_to(p0, dev), tree_map(
+            lambda a: a.index_select(0, idx.to(dev)), _tree_to(e0, dev))
+        new_p, new_e, _ = lu(p, e, x.to(dev), y.to(dev), mask.to(dev),
+                             one.to(dev), lr.to(dev))
+        moves[side] = (tree_map(lambda a, b: (a - b).cpu(), new_p,
+                                _tree_to(p, dev)),
+                       tree_map(lambda a, b: (a - b).cpu(), new_e, e))
+    return {"params": _leaf_rel_err(moves["card"][0], moves["cpu"][0]),
+            "extras": _leaf_rel_err(moves["card"][1], moves["cpu"][1])}
+
+
+def _tree_to(tree, dev):
+    return tree_map(lambda a: a.to(dev), tree)
+
+
+def _tree_cpu(tree):
+    return tree_map(lambda a: a.cpu(), tree)
+
+
+def _leaf_rel_err(got, want) -> float:
+    """The largest over the leaves of max |got − want| / max |want|."""
+    errs = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(_leaves(got), _leaves(want))]
+    return max(errs, default=0.0)
 
 
 def _cpu(tup):
     return type(tup)(*(a.cpu() for a in tup))
 
 
-def host_record(hist, state=None) -> dict:
-    """What phase ``graph_rounds`` holds a host-loop run's graph twin
-    to: its participants, train loss and rounds/s, and an incremental
-    HiCS run's final cache."""
+def host_record(hist, state=None, extras=None) -> dict:
+    """What a host-loop run's graph twin is held to: its participants,
+    train loss and rounds/s, an incremental HiCS run's final cache and
+    the final per-client extras of FedDyn and Moon."""
     rec = {"selected": hist["selected"][:ROUNDS],
            "train_loss": hist["train_loss"][:ROUNDS],
            "rounds_per_s": hist["rounds_per_s"]}
     if state is not None and state.dist_cache.numel():
         rec["cache"] = (state.dist_cache, state.row_stats)
+    if extras:
+        rec["extras"] = extras
     return rec
 
 
@@ -842,7 +951,8 @@ def slice_phase(dev):
     return server, hist, launches
 
 
-def select_vs_plain(server, incremental: bool, tag: str) -> dict:
+def select_vs_plain(server, incremental: bool, tag: str,
+                    kw=SELECTOR_KW) -> dict:
     """One more clustered select on the run's final state, by the
     kernels on the card and by the plain versions on the CPU with the
     same noise: the participants must be identical."""
@@ -851,7 +961,7 @@ def select_vs_plain(server, incremental: bool, tag: str) -> dict:
     ids, _ = server.selector.select(server.state, t, draws.select)
     plain = hics_functional(SPEC.num_clients, SPEC.num_select, ROUNDS,
                             device="cpu",
-                            **dict(SELECTOR_KW, incremental=incremental))
+                            **dict(kw, incremental=incremental))
 
     ids_p, _ = plain.select(_cpu(server.state), t, _cpu(draws.select))
     require(f"{tag}: clustered select differs from the plain versions",
@@ -1242,7 +1352,7 @@ def round_step_syncs(server):
     gen_state = server.gen.get_state()
     rd = server.draw_round(0)
     server.gen.set_state(gen_state)
-    carry = (server.params, server.state,
+    carry = (server.params, server.extras, server.state,
              torch.zeros((), dtype=torch.int32, device=server.device))
     step = server._make_round_step()
     torch.cuda.synchronize()
@@ -1358,17 +1468,21 @@ def host_busy_share(spec, dev) -> dict:
             "cuda_spans": len(spans)}
 
 
-def graph_run(label: str, selector: str, kw, host: dict, dev) -> dict:
+def graph_run(label: str, selector: str, kw, host: dict, dev,
+              spec=None) -> dict:
     """The run of ``host`` again with ``jit_rounds=True``: no
     synchronizing call in an eager round of its round step, one
     capture, the host loop's participants (DivFL's ideal mode to
     ``DIVFL_IDEAL_CARD_HORIZON``), an incremental HiCS cache bit-equal
-    to the host run's, its launches on the graph path (counts set to 0
-    just before the run, read just after), then a second run through
-    the same graph for rounds/s without the capture, and the device
-    time of a replay."""
-    spec = dataclasses.replace(SPEC, selector=selector, selector_kw=kw,
-                               jit_rounds=True)
+    to the host run's and, where the host run kept per-client extras,
+    its train loss and extras bit-equal too, its launches on the graph
+    path (counts set to 0 just before the run, read just after), then a
+    second run through the same graph for rounds/s without the capture,
+    and the device time of a replay.  ``spec`` (default the slice's
+    with ``selector`` and ``kw``) is the host run's."""
+    spec = dataclasses.replace(
+        spec or dataclasses.replace(SPEC, selector=selector,
+                                    selector_kw=kw), jit_rounds=True)
     server, _ = build(spec, device=dev)
     tag = f"graph_rounds {label}"
     syncs = round_step_syncs(server)
@@ -1414,6 +1528,16 @@ def graph_run(label: str, selector: str, kw, host: dict, dev) -> dict:
         require(f"{tag}: cache not bit-equal to the host run's {same}",
                 all(same.values()))
         out["cache_bit_equal"] = same
+    if "extras" in host:
+        same_loss = hist["train_loss"][:ROUNDS] == host["train_loss"]
+        same_extras = all(torch.equal(a, b) for a, b in zip(
+            _leaves(server.extras), _leaves(host["extras"])))
+        require(f"{tag}: train loss not bit-equal to the host run's",
+                same_loss)
+        require(f"{tag}: extras not bit-equal to the host run's",
+                same_extras)
+        out["train_loss_bit_equal"] = same_loss
+        out["extras_bit_equal"] = same_extras
     server.run()                               # the same graph again
     torch.cuda.synchronize()
     require(f"{tag}: a second run captured again", server.captures == 1)
@@ -1464,6 +1588,110 @@ def graph_rounds_phase(dev, host_runs: dict):
           "launches": totals, "launches_by_variant": by_variant,
           "seconds": time.perf_counter() - t0})
     return totals, by_variant
+
+
+# ---------------------------------------------------------------------------
+# the paper's other local updates and HiCS's other linkages, 14 rounds each
+# ---------------------------------------------------------------------------
+
+def _local(algo="fedavg", optimizer="sgd"):
+    return LocalSpec(algo=algo, optimizer=optimizer, lr=0.05, epochs=2,
+                     batch_size=32, mu=0.1, moon_tau=0.5)
+
+
+#: phase local_algos' runs, by label: the slice's spec with another
+#: local update or another clustering
+LOCAL_RUNS = [
+    ("fedprox", dict(local=_local("fedprox"))),
+    ("feddyn", dict(local=_local("feddyn"))),
+    ("moon", dict(local=_local("moon"))),
+    ("fedavg-momentum", dict(local=_local(optimizer="momentum"))),
+    ("fedprox-adam", dict(local=_local("fedprox", "adam"))),
+    ("hics-average-m10", dict(selector_kw=dict(
+        SELECTOR_KW, linkage="average", num_clusters=10))),
+    ("hics-complete-m3-scratch", dict(selector_kw=dict(
+        SELECTOR_KW, linkage="complete", num_clusters=3,
+        incremental=False))),
+    ("hics-single", dict(selector_kw=dict(SELECTOR_KW, linkage="single"))),
+]
+#: the runs with per-client extras, run again through the graph driver
+LOCAL_GRAPH_RUNS = ("feddyn", "moon")
+
+
+def local_run(label: str, changes: dict, dev):
+    """One run of :data:`LOCAL_RUNS` with the launch counts set to 0
+    just before it and read just after: its kernels launched (the strip
+    or, from scratch, pairwise, and fused_stats), finite loss, distinct
+    participants, rounds/s and the round split, its first rounds against
+    the CPU (for the linkage runs every select of the 14 rounds against
+    the plain select on the card's state), and one more select on the
+    final state against the plain one.  Returns its output and its
+    :func:`host_record`."""
+    spec = dataclasses.replace(SPEC, **changes)
+    tag = f"local_algos {label}"
+    server, _ = build(spec, device=dev)
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    hist = server.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kbuild.launches)
+    kw = spec.selector_kw
+    incremental = kw.get("incremental", True)
+    refresh = "gram_update" if incremental else "pairwise"
+    require(f"{tag}: {refresh} was not launched", launches[refresh] > 0)
+    require(f"{tag}: fused_stats launches differ from {refresh}'s",
+            launches["fused_stats"] == launches[refresh])
+    require(f"{tag}: non-finite train loss",
+            bool(np.isfinite(hist["train_loss"]).all()))
+    require(f"{tag}: bad test accuracy",
+            all(0.0 <= a <= 1.0 for a in hist["test_acc"]))
+    require(f"{tag}: participants not distinct",
+            all(len(set(ids)) == SPEC.num_select for ids in hist["selected"]))
+    clustering = "linkage" in kw
+    out = {"run": label, "algo": spec.local.algo,
+           "optimizer": spec.local.optimizer, "selector_kw": kw,
+           "rounds": ROUNDS, "seconds": seconds,
+           "rounds_per_s": hist["rounds_per_s"], "wall_s": hist["wall_s"],
+           "round_split": round_split(server), "launches": launches,
+           "selected": hist["selected"], "train_loss": hist["train_loss"],
+           "test_acc": hist["test_acc"],
+           "vs_cpu": first_rounds_vs_cpu(
+               spec, dev, hist, tag,
+               select_rounds=ROUNDS if clustering else CPU_ROUNDS,
+               one_step=not clustering and spec.local.optimizer != "adam"),
+           "select_vs_plain": select_vs_plain(server, incremental, tag, kw)}
+    if server.extras:
+        out["extras_max_abs"] = {key: max(float(a.abs().max())
+                                          for a in _leaves(tree))
+                                 for key, tree in server.extras.items()}
+    return out, host_record(hist, server.state, server.extras), spec
+
+
+def local_algos_phase(dev):
+    """Each of :data:`LOCAL_RUNS`, then the FedDyn and Moon runs again
+    through the scanned driver, held to their host runs bit for bit.
+    Returns the launches summed over the host runs and over the graph
+    runs."""
+    t0 = time.perf_counter()
+    runs, graph = [], []
+    for label, changes in LOCAL_RUNS:
+        out, record, spec = local_run(label, changes, dev)
+        runs.append(out)
+        if label in LOCAL_GRAPH_RUNS:
+            graph.append(graph_run(label, "hics", spec.selector_kw, record,
+                                   dev, spec=spec))
+        del record
+        torch.cuda.empty_cache()
+    totals = {name: sum(r["launches"][name] for r in runs)
+              for name in kbuild.launches}
+    graph_totals = {name: sum(r["launches"][name] for r in graph)
+                    for name in kbuild.launches}
+    emit({"phase": "local_algos", "card": CARD, "runs": runs,
+          "graph_runs": graph, "launches": totals,
+          "launches_graph": graph_totals,
+          "seconds": time.perf_counter() - t0})
+    return totals, graph_totals
 
 
 # ---------------------------------------------------------------------------
@@ -2083,6 +2311,72 @@ def lm_cut(tokens, dev) -> dict:
             "cpu_seconds": cpu_s}
 
 
+# ---------------------------------------------------------------------------
+# the federated fine-tuning example at its ~100M default
+# ---------------------------------------------------------------------------
+
+FT_ROUNDS = 6
+
+
+def finetune_example_phase(dev) -> dict:
+    """``repro_torch.examples.federated_finetune`` at its default size
+    (qwen3-8b cut to 4 layers at d_model 768, vocab 32,768: ~100M
+    params; 16 clients, K = 4, two sequences of 256 tokens each), cut
+    to 6 rounds, the counts set to 0 just before it and read just
+    after.  Rounds 0-3 sweep, 4-5 cluster; the selects of rounds 1-5
+    refresh the cache through fused_stats and the arccos strip.  Checks
+    finite losses, distinct participants, finite Ĥ and the final cache
+    against the plain from-scratch build.  Returns the launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    res = federated_finetune.main(["--rounds", str(FT_ROUNDS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kbuild.launches)
+    hist, sel = res["history"], res["selector"]
+    for name in ("fused_stats", "gram_update"):
+        require(f"finetune_example: {name} was not launched",
+                launches[name] > 0)
+    require("finetune_example: fused_stats launches differ from the strip's",
+            launches["fused_stats"] == launches["gram_update"]
+            == FT_ROUNDS - 1)
+    require("finetune_example: non-finite loss",
+            bool(np.isfinite(hist["loss"]).all()))
+    require("finetune_example: participants not distinct",
+            all(len(set(ids)) == len(ids) for ids in hist["selected"]))
+    ent = sel.estimated_entropies()
+    require("finetune_example: Ĥ not finite",
+            ent is not None and bool(np.isfinite(ent).all()))
+    st = sel.state
+    _, dist, stats = ops.hics_selection_step_cached(
+        st.delta_b, st.dist_cache, st.row_stats, st.stale_ids, 0.63, LAM,
+        normalize=True, device=dev)
+    ent_p, dist_p = ref.selection_step_ref(st.delta_b, 0.63, LAM,
+                                           normalize=True)
+    out = {"phase": "finetune_example", "card": CARD,
+           "arch": res["cfg"].name, "layers": res["cfg"].num_layers,
+           "d_model": res["cfg"].d_model, "vocab": res["cfg"].vocab_size,
+           "params": res["n_params"], "rounds": FT_ROUNDS,
+           "seconds": seconds,
+           "rounds_per_s": FT_ROUNDS / sum(hist["wall_s"]),
+           "wall_s": hist["wall_s"], "loss": hist["loss"],
+           "selected": hist["selected"], "entropy_spread": hist["spread"],
+           "select_seconds": sel.select_seconds,
+           "update_seconds": sel.update_seconds,
+           "cache_vs_plain": {
+               "dist": check("finetune_example: cache vs plain", dist,
+                             dist_p, 1e-5, 1e-5),
+               "entropy": check("finetune_example: cached Ĥ vs plain",
+                                stats[:, 1], ent_p, 5e-5)},
+           "launches": launches}
+    emit(out)
+    del res, sel
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _paths(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -2101,15 +2395,16 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if argv not in ([], ["graph_rounds"], ["lm_train"]):
-        print("usage: chip_smoke.py [graph_rounds | lm_train]",
-              file=sys.stderr)
+    alone = ("graph_rounds", "lm_train", "local_algos", "finetune_example")
+    if argv and (len(argv) > 1 or argv[0] not in alone):
+        print(f"usage: chip_smoke.py [{' | '.join(alone)}]", file=sys.stderr)
         return 2
-    smi = subprocess.run(
+    global CARD
+    CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    print(smi, flush=True)
+    print(CARD, flush=True)
     dev = torch.device("cuda", 0)
     started = time.perf_counter()
     emit({"phase": "env", "torch": torch.__version__,
@@ -2124,10 +2419,10 @@ def main(argv) -> int:
                     for name, log in reports.items()}})
 
     if argv:                 # one phase alone (graph_rounds: its own host runs)
-        if argv == ["graph_rounds"]:
-            graph_rounds_phase(dev, {})
-        else:
-            lm_train_phase(dev)
+        {"graph_rounds": lambda: graph_rounds_phase(dev, {}),
+         "lm_train": lambda: lm_train_phase(dev),
+         "local_algos": lambda: local_algos_phase(dev),
+         "finetune_example": lambda: finetune_example_phase(dev)}[argv[0]]()
         for f in failures:
             print("FAILED:", f, file=sys.stderr)
         return 1 if failures else 0
@@ -2144,11 +2439,14 @@ def main(argv) -> int:
     feature_launches, records = baselines_phase(dev)
     host_runs.update(records)
     graph_totals, graph_variants = graph_rounds_phase(dev, host_runs)
+    del host_runs
+    local_launches, local_graph_launches = local_algos_phase(dev)
     serve_cases, entropy_launches = serve_kernels_phase(dev)
     res, serve_launches = serve_phase(dev)
     serve_parity_phase(res, dev)
     del res
     lm_launches = lm_train_phase(dev)
+    ft_launches = finetune_example_phase(dev)
 
     # the strip kernel's three epilogues, each counted on its own path:
     # arccos in the HiCS slice and its bf16 run, cosine in the cs run,
@@ -2227,6 +2525,12 @@ def main(argv) -> int:
             kern["launches_graph_by_variant"] = graph_variants[kern["name"]]
         # phase lm_train: qwen2.5-3b's federated fine-tune
         kern["launches_lm"] = lm_launches[kern["name"]]
+        # phase local_algos: its eight host runs and two graph runs;
+        # phase finetune_example: the ~100M example
+        kern["launches_local_algos"] = local_launches[kern["name"]]
+        kern["launches_local_algos_graph"] = local_graph_launches[
+            kern["name"]]
+        kern["launches_finetune"] = ft_launches[kern["name"]]
     # the arccos strip at the LM fine-tune's K2×N8×C151,936
     strip["lm_path"] = {key: lm_strip[key] for key in keys + (
         "bound_by", "max_abs_err", "unsplit_max_abs_err")}

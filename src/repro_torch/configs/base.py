@@ -15,6 +15,8 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional
 
+from repro_torch.core.selectors.functional import LM_SUBSTRATE, not_ported
+
 ARCH_KINDS = ("dense", "moe", "ssm", "hybrid", "audio", "vlm", "classifier")
 
 
@@ -183,10 +185,19 @@ def register(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
+#: the archs the reference registers and the port does not run yet
+NOT_PORTED_ARCHS = ("deepseek-coder-33b", "gemma-7b", "granite-moe-1b-a400m",
+                    "mixtral-8x22b", "pixtral-12b", "rwkv6-3b",
+                    "seamless-m4t-medium", "zamba2-7b")
+
+
 def get_config(name: str) -> ModelConfig:
-    try:
+    """The registered config ``name``.  A reference arch the port does
+    not run yet raises ``NotImplementedError`` naming the ROADMAP.md
+    item that ports it; a name neither package knows, ``KeyError``."""
+    if name in _REGISTRY:
         return _REGISTRY[name]
-    except KeyError:
-        raise KeyError(
-            f"unknown arch {name!r}; known: {sorted(_REGISTRY)}") from None
+    if name in NOT_PORTED_ARCHS:
+        raise not_ported("arch", name, LM_SUBSTRATE)
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
 

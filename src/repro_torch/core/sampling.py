@@ -1,22 +1,98 @@
-"""Two-stage hierarchical clustered sampling (paper §3.4, Eq. 10), on
-device, with the Gumbel noise as an input.
+"""Two-stage hierarchical clustered sampling (paper §3.4, Eq. 10).
 
-The port of the reference's ``anneal_device``, ``gumbel_topk``,
-``weighted_sample_device``, ``coverage_sweep_device`` and
-``hierarchical_sample_device``.  The caller draws the noise; given
-the same Gumbel tensors the port picks the same ids as the reference:
+Stage 1 picks a cluster m with probability
+π_m^t = exp(γ^t H̄_m^t) / Σ_m' exp(γ^t H̄_m'^t), γ^t = γ⁰(1 − t/T);
+stage 2 a client k inside it with probability p_k / Σ_{j∈G_m} p_j.
+K clients repeat both stages without replacement.
 
-* top-k is a stable descending sort, so ties go to the lower index as
-  in ``lax.top_k`` (``torch.topk`` orders ties otherwise, and the
-  coverage sweep's 1e6 offset puts its f32 noise on a 0.0625 grid,
-  where ties are common);
-* ``torch.argmax`` returns the first maximal index, as ``jnp.argmax``.
+The port of the reference's ``core/sampling.py``, in two halves:
+
+* host numpy (``anneal``, ``cluster_probs``, ``hierarchical_sample``,
+  ``sampling_probabilities``): the reference's own helpers, copied, for
+  analysis and the benchmarks; ``hierarchical_sample`` draws from the
+  caller's ``np.random.Generator``, so a shared seed gives the
+  reference's ids;
+* device (``anneal_device``, ``gumbel_topk``, ``weighted_sample_device``,
+  ``coverage_sweep_device``, ``hierarchical_sample_device``), with the
+  Gumbel noise as an input.  Given the same Gumbel tensors the port
+  picks the same ids as the reference: top-k is a stable descending
+  sort, so ties go to the lower index as in ``lax.top_k``
+  (``torch.topk`` orders ties otherwise, and the coverage sweep's 1e6
+  offset puts its f32 noise on a 0.0625 grid, where ties are common),
+  and ``torch.argmax`` returns the first maximal index, as
+  ``jnp.argmax``.
 """
 from __future__ import annotations
 
+from typing import List
+
+import numpy as np
 import torch
 
 _NEG_LOG_FLOOR = 1e-30   # log-clip so zero weights become ~ -inf, not nan
+
+
+def anneal(gamma0: float, t: int, total_rounds: int) -> float:
+    """γ^t = γ⁰ (1 − t/T), clipped at 0."""
+    return float(gamma0 * max(0.0, 1.0 - t / max(1, total_rounds)))
+
+
+def cluster_probs(mean_entropies: np.ndarray, gamma_t: float) -> np.ndarray:
+    """π^t over clusters (Eq. 10 left), a stable softmax in f64."""
+    z = gamma_t * np.asarray(mean_entropies, dtype=np.float64)
+    z = z - np.max(z)
+    e = np.exp(z)
+    return e / np.sum(e)
+
+
+def hierarchical_sample(rng: np.random.Generator, labels: np.ndarray,
+                        mean_entropies: np.ndarray, weights: np.ndarray,
+                        k: int, gamma_t: float) -> List[int]:
+    """K distinct client ids by the two-stage scheme, drawn from
+    ``rng``: labels (N,) cluster ids, mean_entropies (M,) H̄_m, weights
+    (N,) p_k (need not be normalized).  An emptied cluster is
+    renormalized away."""
+    n = len(labels)
+    k = min(k, n)
+    m = int(np.max(labels)) + 1 if n else 0
+    avail = [list(np.flatnonzero(labels == c)) for c in range(m)]
+    pi = cluster_probs(mean_entropies, gamma_t)
+    w = np.asarray(weights, dtype=np.float64)
+    chosen: List[int] = []
+    while len(chosen) < k:
+        mask = np.array([len(a) > 0 for a in avail], dtype=np.float64)
+        probs = pi * mask
+        s = probs.sum()
+        if s <= 0:
+            probs = mask / mask.sum()
+        else:
+            probs = probs / s
+        c = int(rng.choice(m, p=probs))
+        cand = avail[c]
+        pw = w[cand]
+        pw = pw / pw.sum() if pw.sum() > 0 else np.full(len(cand),
+                                                        1.0 / len(cand))
+        pick = int(rng.choice(len(cand), p=pw))
+        chosen.append(cand.pop(pick))
+    return chosen
+
+
+def sampling_probabilities(labels: np.ndarray, mean_entropies: np.ndarray,
+                           weights: np.ndarray,
+                           gamma_t: float) -> np.ndarray:
+    """The single-draw marginal ω_k^t = π_{m(k)} · p_k / Σ_{j∈G_m} p_j
+    (uniform within a cluster of zero weight)."""
+    pi = cluster_probs(mean_entropies, gamma_t)
+    w = np.asarray(weights, dtype=np.float64)
+    out = np.zeros(len(labels), dtype=np.float64)
+    for c in np.unique(labels):
+        sel = labels == c
+        denom = w[sel].sum()
+        if denom > 0:
+            out[sel] = pi[c] * w[sel] / denom
+        else:
+            out[sel] = pi[c] / sel.sum()
+    return out
 
 
 def anneal_device(gamma0: float, t, total_rounds: float,

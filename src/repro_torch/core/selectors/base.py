@@ -78,7 +78,8 @@ class ClientSelector:
         draws (a driver or a test replaying another run's)."""
         t0 = time.perf_counter()
         if noise is None:
-            noise = draw_select_noise(self.gen, self.n, self.k)
+            noise = draw_select_noise(self.gen, self.n, self.k,
+                                      self.fn.num_clusters)
         noise = SelectNoise(*(a.to(self.device) for a in noise))
         ids, self.state = self.fn.select(
             self.state, round_index(t, self.device), noise)

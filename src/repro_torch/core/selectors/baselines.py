@@ -42,7 +42,8 @@ from repro_torch.core.clustering import agglomerate_device
 from repro_torch.core.sampling import (_topk_stable, coverage_sweep_device,
                                        weighted_sample_device)
 from repro_torch.core.selectors.base import ClientSelector
-from repro_torch.core.selectors.functional import (FunctionalSelector,
+from repro_torch.core.selectors.functional import (SCENARIOS,
+                                                   FunctionalSelector,
                                                    Observations,
                                                    SelectNoise,
                                                    SelectorState, cond,
@@ -198,7 +199,7 @@ def cs_functional(num_clients: int, num_select: int, total_rounds: int,
     n = int(num_clients)
     k = min(int(num_select), n)
     if max(1, int(stale_slots)) != 1:
-        raise not_ported("stale_slots", stale_slots)
+        raise not_ported("stale_slots", stale_slots, SCENARIOS)
     project, feat_width = _make_projector(proj_dim, proj_seed, proj_signs)
     f_dim = max(1, feat_width(int(feat_dim)))
     incremental = bool(incremental)
@@ -307,7 +308,7 @@ def divfl_functional(num_clients: int, num_select: int, total_rounds: int,
     n = int(num_clients)
     k = min(int(num_select), n)
     if max(1, int(stale_slots)) != 1:
-        raise not_ported("stale_slots", stale_slots)
+        raise not_ported("stale_slots", stale_slots, SCENARIOS)
     if refresh not in ("all", "selected"):
         raise ValueError(f"refresh must be 'all' or 'selected', got "
                          f"{refresh!r}")

@@ -36,7 +36,8 @@ class SelectNoise(NamedTuple):
 
     cover        (N,)   the coverage sweep's, and the weighted
                         sampler's (same key and shape)
-    cluster      (K, M) per two-stage draw i, the cluster stage's
+    cluster      (K, M) per two-stage draw i, the cluster stage's (M
+                        clusters, K unless HiCS's ``num_clusters``)
     client       (K, N) per two-stage draw i, the client stage's
     cluster_pick (K, N) Clustered Sampling's one pick per cluster
     """
@@ -50,13 +51,15 @@ def _gumbel(gen: torch.Generator, shape) -> torch.Tensor:
     return -torch.empty(shape).exponential_(generator=gen).log()
 
 
-def draw_select_noise(gen: torch.Generator, n: int, k: int) -> SelectNoise:
-    """One round's :class:`SelectNoise` for N clients and a cohort of K
-    (M = K clusters), drawn on the CPU from ``gen`` in field order: the
-    server's draws, and the OO shim's when no noise is given."""
+def draw_select_noise(gen: torch.Generator, n: int, k: int,
+                      m: Optional[int] = None) -> SelectNoise:
+    """One round's :class:`SelectNoise` for N clients, a cohort of K and
+    M clusters (default K), drawn on the CPU from ``gen`` in field
+    order: the server's draws, and the OO shim's when no noise is
+    given."""
     k = min(k, n)
     return SelectNoise(cover=_gumbel(gen, (n,)),
-                       cluster=_gumbel(gen, (k, k)),
+                       cluster=_gumbel(gen, (k, k if m is None else m)),
                        client=_gumbel(gen, (k, n)),
                        cluster_pick=_gumbel(gen, (k, n)))
 
@@ -104,6 +107,8 @@ class FunctionalSelector(NamedTuple):
     entropies: Optional[Callable[[SelectorState], torch.Tensor]] = None
     #: observed full-update width P -> stored feature width F
     feat_width: Optional[Callable[[int], int]] = None
+    #: clusters M of the two-stage sampler's noise; None: K
+    num_clusters: Optional[int] = None
 
 
 def state_entropies(fn: FunctionalSelector,
@@ -149,15 +154,12 @@ def init_state(num_clients: int, weights=None, num_classes: int = 0,
 
 #: ROADMAP.md's queue 1 items, by title, that port the options the
 #: port still refuses
-SELECTOR_LAYER = "queue 1: the rest of the selector layer"
-LOCAL_UPDATES = ("queue 1: the other local updates, momentum, and the "
-                 "estimator's theory half")
+SCENARIOS = "queue 1: scenarios, the seed sweep and the async server"
 TELEMETRY = "queue 1: telemetry"
 LM_SUBSTRATE = "queue 1: the rest of the LM substrate"
 
 
-def not_ported(name: str, value,
-               item: str = SELECTOR_LAYER) -> NotImplementedError:
+def not_ported(name: str, value, item: str) -> NotImplementedError:
     """The error for a value of a reference option that the port does
     not run yet: raised, never swallowed, so that a run never differs
     from the reference's without a word.  ``item`` is the title of the

@@ -1,8 +1,10 @@
 """HiCS-FL (Algorithm 1) as a functional triple.
 
 While the coverage pool is not empty: a uniform sweep without
-replacement (Alg. 1 lines 14-15).  Afterwards: ward clustering into
-M = K groups on the Eq. 9 distance and the two-stage Eq. 10 sampler.
+replacement (Alg. 1 lines 14-15).  Afterwards: agglomerative clustering
+(``linkage`` ward, average, complete or single) into ``num_clusters``
+= M groups (default K, any M from 1 to N) on the Eq. 9 distance and the
+two-stage Eq. 10 sampler.
 
 * ``incremental=True`` (default) keeps a cached (N, N) distance and
   (N, 2) [norm, Ĥ] stats; ``select`` first refreshes the rows that
@@ -13,16 +15,15 @@ M = K groups on the Eq. 9 distance and the two-stage Eq. 10 sampler.
 
 ``gram_in_bf16`` rounds the two Gram operands to bf16 in both kernels
 (f32 sums; the stats stay f32).  On the CPU the plain versions ignore
-it and stay f32, as the reference's CPU oracle does.  The reference's
-other linkages, ``num_clusters`` other than K and ``stale_slots`` other
-than 1 are not ported: they raise.
+it and stay f32, as the reference's CPU oracle does.  ``stale_slots``
+other than 1 is not ported: it raises.
 
 Both run on the state's device: the CUDA kernels on the card, the
 plain versions on the CPU.  The two branch tests go
 through ``functional.cond``: one scalar read each per round in the
 host loop, none in the scanned driver's
-round step, where both branches run (ward on the sweep rounds' zero
-cache is finite and discarded).  ``update`` reads
+round step, where both branches run (every linkage on the sweep
+rounds' zero cache is finite and discarded).  ``update`` reads
 ``obs.bias_updates``.
 """
 from __future__ import annotations
@@ -31,12 +32,14 @@ import torch
 
 from repro_torch.backend import resolve_device
 from repro_torch.core.clustering import (agglomerate_device,
+                                         check_linkage,
                                          cluster_means_device)
 from repro_torch.core.hetero import estimate_entropy
 from repro_torch.core.sampling import (anneal_device, coverage_sweep_device,
                                        hierarchical_sample_device)
 from repro_torch.core.selectors.base import ClientSelector
-from repro_torch.core.selectors.functional import (FunctionalSelector,
+from repro_torch.core.selectors.functional import (SCENARIOS,
+                                                   FunctionalSelector,
                                                    Observations,
                                                    SelectNoise,
                                                    SelectorState, cond,
@@ -57,12 +60,10 @@ def hics_functional(num_clients: int, num_select: int, total_rounds: int,
                     device="cuda", **_kw) -> FunctionalSelector:
     n = int(num_clients)
     k = min(int(num_select), n)
-    if linkage != "ward":
-        raise not_ported("linkage", linkage)
-    if num_clusters and int(num_clusters) != k:
-        raise not_ported("num_clusters", num_clusters)
+    m = int(num_clusters) if num_clusters else k
+    check_linkage(linkage)
     if max(1, int(stale_slots)) != 1:
-        raise not_ported("stale_slots", stale_slots)
+        raise not_ported("stale_slots", stale_slots, SCENARIOS)
     gram_in_bf16 = bool(gram_in_bf16)
     temperature, lam, gamma0 = float(temperature), float(lam), float(gamma0)
     tr = float(total_rounds)
@@ -97,8 +98,9 @@ def hics_functional(num_clients: int, num_select: int, total_rounds: int,
                     device=device)
             # the cache scatter and the pairwise kernel keep the matrix
             # exactly symmetric, so clustering skips re-symmetrizing
-            labels = agglomerate_device(dist, k, precomputed=True)
-            means = cluster_means_device(ent, labels, k)
+            labels = agglomerate_device(dist, m, linkage=linkage,
+                                        precomputed=True)
+            means = cluster_means_device(ent, labels, m)
             gamma_t = anneal_device(gamma0, t, tr, device=device)
             ids = hierarchical_sample_device(noise.cluster, noise.client,
                                              labels, means, state.weights,
@@ -124,7 +126,8 @@ def hics_functional(num_clients: int, num_select: int, total_rounds: int,
                                 normalize=normalize)
 
     return FunctionalSelector("hics", frozenset({"bias_sel"}), init,
-                              select, update, entropies=entropies)
+                              select, update, entropies=entropies,
+                              num_clusters=m)
 
 
 class HiCSFLSelector(ClientSelector):

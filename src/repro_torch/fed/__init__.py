@@ -1,6 +1,7 @@
-"""Federated-learning runtime of the port: partitioning, the fedavg
-client, the host-loop server and the experiment builder."""
-from repro_torch.fed.client import (LocalSpec, make_eval_fn,
+"""Federated-learning runtime of the port: partitioning, the client's
+local updates (fedavg, fedprox, feddyn, moon), the server's two round
+drivers and the experiment builder."""
+from repro_torch.fed.client import (LocalSpec, init_extra, make_eval_fn,
                                     make_local_update, make_loss_poll)
 from repro_torch.fed.partition import (dirichlet_partition,
                                        multi_alpha_partition)
@@ -14,6 +15,6 @@ from repro_torch.fed.simulation import (PAPER_SETTINGS, ExperimentSpec, build,
 __all__ = ["ExperimentSpec", "FedConfig", "FederatedServer", "LocalSpec",
            "PAPER_SETTINGS", "RoundDraws", "aggregate_params", "build",
            "dirichlet_partition", "flatten_params", "full_sel_updates",
-           "make_eval_fn", "make_grad_all", "make_local_update",
+           "init_extra", "make_eval_fn", "make_grad_all", "make_local_update",
            "make_loss_poll", "multi_alpha_partition", "rounds_to_accuracy",
            "run_experiment"]

@@ -1,38 +1,39 @@
-"""Client-side LocalUpdate (Algorithm 1 line 3): fedavg with sgd or
-adam, and the server's all-clients loss poll.
+"""Client-side LocalUpdate (Algorithm 1 line 3) for every FL-algorithm ×
+optimizer pair the paper analyzes, and the server's all-clients loss
+poll:
 
-The port of the reference's ``fed/client.py`` for fedavg.
-:class:`LocalSpec` takes the reference's fields and names; the other
-algorithms and sgd-momentum raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.  Every
-client's data is padded to a common (S_max, d) with a sample mask, and
-the whole cohort of K clients trains at once: ``torch.func.vmap`` of
-``torch.func.grad_and_value`` over the K stacked param dicts.  The
-epoch permutations are an input, (K, epochs, S_max), in place of the
+  algorithms : fedavg | fedprox (Eq. 67) | feddyn (Eq. 74) | moon (Eq. 91)
+  optimizers : sgd | sgd-momentum | adam        (App. A.9)
+
+The port of the reference's ``fed/client.py``.  Every client's data is
+padded to a common (S_max, d) with a sample mask, and the whole cohort
+of K clients trains at once: ``torch.func.vmap`` of
+``torch.func.grad_and_value`` over the K stacked param dicts and the K
+stacked per-client extras (FedDyn's ``h``, Moon's ``prev``).  The epoch
+permutations are an input, (K, epochs, S_max), in place of the
 reference's per-epoch ``jax.random.permutation``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Dict, Optional
 
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.core.selectors.functional import LOCAL_UPDATES, not_ported
-from repro_torch.optim import adam, apply_updates, sgd, tree_map
+from repro_torch.optim import (adam, apply_updates, sgd, sgd_momentum,
+                               tree_leaves, tree_map)
 
 ALGOS = ("fedavg", "fedprox", "feddyn", "moon")
-OPTIMIZERS = ("sgd", "momentum", "adam")
+OPTIMIZERS = {"sgd": sgd, "momentum": sgd_momentum, "adam": adam}
 
 
 @dataclasses.dataclass(frozen=True)
 class LocalSpec:
     """The reference's ``LocalSpec``: an unknown ``algo`` or
-    ``optimizer`` raises ``ValueError``, as there; a known one the port
-    does not run yet (every algo but fedavg, the momentum optimizer)
-    raises ``NotImplementedError``.  ``mu`` and ``moon_tau`` are read
-    only by those algorithms."""
+    ``optimizer`` raises ``ValueError``, as there.  ``mu`` weighs the
+    fedprox, feddyn and moon terms, ``moon_tau`` is Moon's contrastive
+    temperature."""
     algo: str = "fedavg"
     optimizer: str = "sgd"
     lr: float = 0.001
@@ -45,11 +46,8 @@ class LocalSpec:
         if self.algo not in ALGOS:
             raise ValueError(f"algo must be one of {ALGOS}")
         if self.optimizer not in OPTIMIZERS:
-            raise ValueError(f"optimizer must be one of {OPTIMIZERS}")
-        if self.algo != "fedavg":
-            raise not_ported("algo", self.algo, LOCAL_UPDATES)
-        if self.optimizer == "momentum":
-            raise not_ported("optimizer", self.optimizer, LOCAL_UPDATES)
+            raise ValueError(
+                f"optimizer must be one of {tuple(OPTIMIZERS)}")
 
 
 def masked_ce(logits: torch.Tensor, labels: torch.Tensor,
@@ -65,21 +63,77 @@ def masked_ce(logits: torch.Tensor, labels: torch.Tensor,
     return per.sum(dim=-1) / torch.clamp(mask.sum(dim=-1), min=1.0)
 
 
-def make_local_update(apply_fn: Callable, spec: LocalSpec) -> Callable:
-    """Build ``local_update(global_params, x, y, mask, perms, lr_scale)``
-    for a cohort: x (K, S, d), y and mask (K, S), perms (K, epochs, S)
-    int64, lr_scale a 0-d f32 tensor.  Returns (K-stacked local params,
-    {"train_loss": (K,)}), the loss being the mean over epochs of the
-    mean over steps, as in the reference.  The optimizer state is made
-    anew in each call, as the reference's ``opt.init(params0)``."""
-    opt = {"sgd": sgd, "adam": adam}[spec.optimizer](spec.lr)
+def _tree_sum(fn, a: dict, b: dict) -> torch.Tensor:
+    """Σ over the leaves of ``fn(a_leaf, b_leaf).sum()``, leaf by leaf in
+    the reference's order (dict keys sorted), from 0 as Python's
+    ``sum``: the order sets the loss's last bits."""
+    total = 0
+    for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True):
+        total = total + torch.sum(fn(x, y))
+    return total
 
-    def loss_fn(params, xb, yb, mb):
-        return masked_ce(apply_fn(params, xb), yb, mb)
 
-    cohort_grad = vmap(grad_and_value(loss_fn))
+def _tree_sqdist(a: dict, b: dict) -> torch.Tensor:
+    return _tree_sum(lambda x, y: torch.square(x - y), a, b)
 
-    def local_update(global_params, x, y, mask, perms, lr_scale):
+
+def _tree_dot(a: dict, b: dict) -> torch.Tensor:
+    return _tree_sum(torch.mul, a, b)
+
+
+def _moon_term(feat, feat_glob, feat_prev, tau: float,
+               mask) -> torch.Tensor:
+    """−log(e^{sim(z, z_g)/τ} / (e^{sim(z, z_g)/τ} + e^{sim(z, z_p)/τ})),
+    the mean over the rows with mask > 0."""
+    def cos(u, v):
+        un = u / (torch.linalg.vector_norm(u, dim=-1, keepdim=True) + 1e-8)
+        vn = v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-8)
+        return torch.sum(un * vn, dim=-1)
+
+    pos = cos(feat, feat_glob) / tau
+    neg = cos(feat, feat_prev) / tau
+    per = torch.logsumexp(torch.stack([pos, neg], dim=-1), dim=-1) - pos
+    return (per * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def make_local_update(apply_fn: Callable, spec: LocalSpec,
+                      features_fn: Optional[Callable] = None) -> Callable:
+    """Build ``local_update(global_params, extra, x, y, mask, perms,
+    lr_scale)`` for a cohort: ``extra`` the K-stacked per-client extras
+    (:func:`init_extra`'s keys, each leaf with a leading K axis; ``{}``
+    for fedavg and fedprox), x (K, S, d), y and mask (K, S), perms
+    (K, epochs, S) int64, lr_scale a 0-d f32 tensor.  Returns (K-stacked
+    local params, the K-stacked new extras, {"train_loss": (K,)}), the
+    loss being the mean over epochs of the mean over steps of the
+    algorithm's whole objective, as in the reference.  The optimizer
+    state is made anew in each call, as the reference's
+    ``opt.init(params0)``.  Moon needs ``features_fn(params, x)``, the
+    penultimate activations."""
+    opt = OPTIMIZERS[spec.optimizer](spec.lr)
+    algo, mu = spec.algo, spec.mu
+    if algo == "moon" and features_fn is None:
+        raise ValueError("moon requires a features_fn")
+
+    def loss_fn(params, global_params, extra, xb, yb, mb):
+        loss = masked_ce(apply_fn(params, xb), yb, mb)
+        if algo == "fedprox":
+            loss = loss + 0.5 * mu * _tree_sqdist(params, global_params)
+        elif algo == "feddyn":
+            loss = (loss - _tree_dot(extra["h"], params)
+                    + 0.5 * mu * _tree_sqdist(params, global_params))
+        elif algo == "moon":
+            # the anchors carry no gradient, as the reference's
+            # stop_gradient
+            feat = features_fn(params, xb)
+            fg = features_fn(global_params, xb).detach()
+            fp = features_fn(extra["prev"], xb).detach()
+            loss = loss + mu * _moon_term(feat, fg, fp, spec.moon_tau, mb)
+        return loss
+
+    cohort_grad = vmap(grad_and_value(loss_fn),
+                       in_dims=(0, None, 0, 0, 0, 0))
+
+    def local_update(global_params, extra, x, y, mask, perms, lr_scale):
         k, s_max = x.shape[:2]
         bs = min(spec.batch_size, s_max)
         nb = max(1, s_max // bs)
@@ -96,11 +150,12 @@ def make_local_update(apply_fn: Callable, spec: LocalSpec) -> Callable:
             mb = mask[rows, perm].reshape(k, nb, bs)
             step_losses = []
             for b in range(nb):
-                grads, loss = cohort_grad(params, xb[:, b], yb[:, b],
-                                          mb[:, b])
-                # a fully masked (padding-only) batch gets zero grads: a
-                # no-op under sgd, while adam's moments and count still
-                # advance, as in the reference
+                grads, loss = cohort_grad(params, global_params, extra,
+                                          xb[:, b], yb[:, b], mb[:, b])
+                # a fully masked (padding-only) batch gets zero grads,
+                # the algorithm's terms included: a no-op under sgd,
+                # while momentum's m decays and adam's moments and
+                # count advance, as in the reference
                 live = (mb[:, b].sum(dim=-1) > 0).float()
                 grads = tree_map(
                     lambda g: g * live.view(-1, *([1] * (g.dim() - 1))),
@@ -111,9 +166,27 @@ def make_local_update(apply_fn: Callable, spec: LocalSpec) -> Callable:
                 step_losses.append(loss)
             epoch_losses.append(torch.stack(step_losses, dim=1).mean(dim=1))
         train_loss = torch.stack(epoch_losses, dim=1).mean(dim=1)
-        return params, {"train_loss": train_loss}
+        new_extra = dict(extra)
+        if algo == "feddyn":
+            # h_k ← h_k − μ (θ_k − θ^t)
+            new_extra["h"] = tree_map(lambda h, p, g: h - mu * (p - g),
+                                      extra["h"], params, global_params)
+        elif algo == "moon":
+            new_extra["prev"] = params
+        return params, new_extra, {"train_loss": train_loss}
 
     return local_update
+
+
+def init_extra(spec: LocalSpec, params: dict) -> Dict[str, dict]:
+    """Per-client persistent algorithm state at round 0 (one client's,
+    unstacked): FedDyn's ``h`` zeros, Moon's ``prev`` the params."""
+    extra: Dict[str, dict] = {}
+    if spec.algo == "feddyn":
+        extra["h"] = tree_map(torch.zeros_like, params)
+    if spec.algo == "moon":
+        extra["prev"] = params
+    return extra
 
 
 def make_eval_fn(apply_fn: Callable) -> Callable:

@@ -2,7 +2,9 @@
 
 Per round t:
   1. S^t ← select (ids, state = fn.select(state, t, noise))
-  2. LocalUpdate for the K selected clients, as one batched cohort step
+  2. LocalUpdate for the K selected clients, as one batched cohort step,
+     with their rows of the per-client extras (FedDyn's ``h``, Moon's
+     ``prev``: N-stacked, gathered and written back by index)
   3. θ^{t+1} ← (1/K) Σ_{k∈S^t} θ_k^t
   4. whatever the selector ``requires`` (:meth:`observe`):
        bias_sel — the participants' head-bias Δb (HiCS-FL)
@@ -30,10 +32,10 @@ Two drivers over the same round, :meth:`FederatedServer._round`:
   the selector state (``functional.cond``) reads one scalar on the
   host and runs one branch.
 * ``run(jit_rounds=True)`` (the reference's scanned driver): the round
-  is one functional step, ``(params, state, t), draws -> (params,
-  state, t + 1), (ids, train loss, Ĥ)``, built once, that reads
-  nothing on the host: every ``cond`` runs both branches and picks on
-  the device.  On the card the step is captured once as a
+  is one functional step, ``(params, extras, state, t), draws ->
+  (params, extras, state, t + 1), (ids, train loss, Ĥ)``, built once,
+  that reads nothing on the host: every ``cond`` runs both branches and
+  picks on the device.  On the card the step is captured once as a
   ``torch.cuda.CUDAGraph`` and replayed every round; on the CPU it
   runs eagerly.  Rounds go in segments of ``eval_every`` (all rounds
   in one without a test set): a segment's draws are made first, in
@@ -60,7 +62,7 @@ from repro_torch.core.selectors.functional import (TELEMETRY,
                                                    draw_select_noise,
                                                    not_ported, round_index,
                                                    state_entropies)
-from repro_torch.fed.client import (LocalSpec, make_eval_fn,
+from repro_torch.fed.client import (LocalSpec, init_extra, make_eval_fn,
                                     make_local_update, make_loss_poll)
 from repro_torch.kernels import build as kernel_build
 from repro_torch.optim import tree_map
@@ -127,14 +129,15 @@ def full_sel_updates(params: dict, new_params: dict) -> torch.Tensor:
 
 def make_grad_all(apply_fn: Callable, local: LocalSpec) -> Callable:
     """The ``full_all`` observation (DivFL's ideal setting): a one-epoch
-    fedavg update of every client at the base lr,
-    ``(params, x, y, mask, perms (N, 1, S_max)) -> (N, P)`` flattened
-    θ_k − θ."""
-    lu1 = make_local_update(apply_fn, dataclasses.replace(local, epochs=1))
+    fedavg update of every client at the base lr, with the run's
+    optimizer, ``(params, x, y, mask, perms (N, 1, S_max)) -> (N, P)``
+    flattened θ_k − θ."""
+    lu1 = make_local_update(apply_fn, dataclasses.replace(
+        local, epochs=1, algo="fedavg"))
 
     def grad_all(params, x, y, mask, perms):
         one = torch.ones((), dtype=torch.float32, device=x.device)
-        new_params, _ = lu1(params, x, y, mask, perms, one)
+        new_params, _, _ = lu1(params, {}, x, y, mask, perms, one)
         return flatten_params(new_params, lead=1) - flatten_params(params)
 
     return grad_all
@@ -150,11 +153,11 @@ def _copy_into(static, value) -> None:
 class RoundGraph:
     """One round captured as a ``torch.cuda.CUDAGraph``.
 
-    ``step((params, state, t), draws) -> ((params, state, t + 1),
-    outputs)`` is warmed up once on the capture stream, which builds
-    and loads the kernels, sets their attributes and makes the per-stream
-    buffers they keep (``kernels.pairwise.tile_counters``), without
-    writing back: the transitions never write into what they are given.
+    ``step((params, extras, state, t), draws) -> ((params, extras,
+    state, t + 1), outputs)`` is warmed up once on the capture stream,
+    which builds and loads the kernels, sets their attributes and makes
+    the per-stream buffers they keep (``kernels.pairwise.
+    tile_counters``), without writing back: the transitions never write into what they are given.
     Then ``outputs = step(static)`` and the copy of the new carry into
     the static carry are captured; each :meth:`replay` copies a round's
     draws into the static draws and replays.  A capture records its
@@ -195,14 +198,17 @@ class FederatedServer:
     """Drives T rounds of federated training over padded client data.
 
     ``init_fn(gen, device)`` makes the initial params from the
-    server's generator, which then draws every round's noise.
+    server's generator, which then draws every round's noise.  Moon
+    needs ``features_fn(params, x)``, the model's penultimate
+    activations.  ``extras`` holds the per-client extras of the local
+    update, each leaf N-stacked (``{}`` for fedavg and fedprox).
     """
 
     def __init__(self, init_fn, apply_fn, cfg: FedConfig,
                  client_x: np.ndarray, client_y: np.ndarray,
                  client_mask: np.ndarray,
                  test: Optional[Dict[str, np.ndarray]] = None,
-                 device="cuda"):
+                 device="cuda", features_fn=None):
         if client_x.shape[0] != cfg.num_clients:
             raise ValueError("client_x must have num_clients rows")
         self.cfg = cfg
@@ -217,6 +223,7 @@ class FederatedServer:
         self.gen = torch.Generator().manual_seed(cfg.seed)
         self.params = init_fn(self.gen, dev)
         self.apply_fn = apply_fn
+        self.features_fn = features_fn
         kw = dict(cfg.selector_kw or {})
         # size the selector's buffers from the model: Δb width and the
         # raw flattened-update width
@@ -228,7 +235,11 @@ class FederatedServer:
             weights=np.asarray(client_mask).sum(axis=1), device=dev, **kw)
         self.requires = self.selector.requires
         self.state = self.selector.init()
-        self._lu = make_local_update(apply_fn, cfg.local)
+        self._lu = make_local_update(apply_fn, cfg.local, features_fn)
+        n = cfg.num_clients
+        self.extras = tree_map(
+            lambda leaf: leaf.expand(n, *leaf.shape).clone(),
+            init_extra(cfg.local, self.params))
         self._eval = make_eval_fn(apply_fn)
         if "loss_all" in self.requires:
             self._poll = make_loss_poll(apply_fn)
@@ -263,7 +274,7 @@ class FederatedServer:
         n = cfg.num_clients
         k = min(cfg.num_select, n)
         s_max = self.x.shape[1]
-        noise = draw_select_noise(gen, n, k)
+        noise = draw_select_noise(gen, n, k, self.selector.num_clusters)
 
         def perms(rows: int, epochs: int) -> torch.Tensor:
             return torch.stack([
@@ -276,16 +287,20 @@ class FederatedServer:
             perms(n, 1) if "full_all" in self.requires else None)
 
     def local_update(self, t, ids: torch.Tensor, perms: torch.Tensor,
-                     params: Optional[dict] = None):
-        """The cohort's LocalUpdate from ``params`` (default the
-        current ones): (K-stacked params, {"train_loss": (K,)}).  The
-        lr halves every ``lr_decay_every`` rounds: a 0-d tensor computed
+                     params: Optional[dict] = None,
+                     extras: Optional[dict] = None):
+        """The cohort's LocalUpdate from ``params`` and the N-stacked
+        ``extras`` (default the current ones): (K-stacked params, the
+        cohort's K-stacked new extras, {"train_loss": (K,)}).  The lr
+        halves every ``lr_decay_every`` rounds: a 0-d tensor computed
         from the round index ``t`` (a 0-d int32 tensor, or an int)."""
         cfg, idx = self.cfg, ids.long()
         t = round_index(t, self.device)
         decay = torch.pow(cfg.lr_decay, torch.div(
             t, cfg.lr_decay_every, rounding_mode="floor").float())
+        extras = self.extras if extras is None else extras
         return self._lu(self.params if params is None else params,
+                        tree_map(lambda a: a.index_select(0, idx), extras),
                         self.x[idx], self.y[idx], self.mask[idx],
                         perms[:idx.shape[0]], decay)
 
@@ -310,22 +325,29 @@ class FederatedServer:
         return Observations(bias_updates=bias, full_updates=full,
                             losses=losses)
 
-    def _round(self, params: dict, state, t: torch.Tensor, rd: RoundDraws):
+    def _round(self, params: dict, extras: dict, state, t: torch.Tensor,
+               rd: RoundDraws):
         """One round, functional: select, local update, aggregate,
-        observe, update.  Returns (params, state, ids, the cohort's
-        metrics); writes into nothing it is given."""
+        observe, update.  Returns (params, extras, state, ids, the
+        cohort's metrics); writes into nothing it is given."""
         ids, state = self.selector.select(state, t, rd.select)
-        new_params, metrics = self.local_update(t, ids, rd.perms, params)
+        new_params, new_extras, metrics = self.local_update(
+            t, ids, rd.perms, params, extras)
+        idx = ids.long()
+        extras = tree_map(lambda a, v: a.index_copy(0, idx, v), extras,
+                          new_extras)
         agg = aggregate_params(new_params)
         obs = self.observe(params, new_params, rd.grad_perms, agg)
-        return agg, self.selector.update(state, t, ids, obs), ids, metrics
+        return (agg, extras, self.selector.update(state, t, ids, obs), ids,
+                metrics)
 
     def step(self, t, rd: RoundDraws):
-        """One host-loop round from the current params and selector
-        state, with round t's draws.  Returns (ids, the cohort's
-        metrics)."""
-        self.params, self.state, ids, metrics = self._round(
-            self.params, self.state, round_index(t, self.device), rd)
+        """One host-loop round from the current params, extras and
+        selector state, with round t's draws.  Returns (ids, the
+        cohort's metrics)."""
+        self.params, self.extras, self.state, ids, metrics = self._round(
+            self.params, self.extras, self.state,
+            round_index(t, self.device), rd)
         return ids, metrics
 
     def run(self, progress: bool = False,
@@ -355,15 +377,16 @@ class FederatedServer:
         return self._finish()
 
     def _make_round_step(self) -> Callable:
-        """The scanned driver's round: ``((params, state, t), draws) ->
-        ((params, state, t + 1), (ids, mean train loss, Ĥ or (0,)))``,
-        :meth:`_round` with every ``cond`` on the device."""
+        """The scanned driver's round: ``((params, extras, state, t),
+        draws) -> ((params, extras, state, t + 1), (ids, mean train
+        loss, Ĥ or (0,)))``, :meth:`_round` with every ``cond`` on the
+        device."""
         def round_step(carry, rd: RoundDraws):
-            params, state, t = carry
+            params, extras, state, t = carry
             with both_branches():
-                params, state, ids, metrics = self._round(params, state, t,
-                                                          rd)
-            return ((params, state, t + 1),
+                params, extras, state, ids, metrics = self._round(
+                    params, extras, state, t, rd)
+            return ((params, extras, state, t + 1),
                     (ids, metrics["train_loss"].mean(),
                      state_entropies(self.selector, state)))
 
@@ -379,7 +402,7 @@ class FederatedServer:
         draws = draws or self._draw_host
         if self._round_step is None:
             self._round_step = self._make_round_step()
-        carry = (self.params, self.state,
+        carry = (self.params, self.extras, self.state,
                  torch.zeros((), dtype=torch.int32, device=dev))
         if self._graph is not None:
             self._graph.load(carry)
@@ -392,7 +415,7 @@ class FederatedServer:
                 carry, outs = self._segment(carry, [draws(t + i)
                                                     for i in range(n)])
                 ids, loss, ent = (torch.stack(o).cpu() for o in zip(*outs))
-            self.params, self.state = carry[0], carry[1]
+            self.params, self.extras, self.state = carry[:3]
             self.history["segment_wall_s"].append(
                 time.perf_counter() - t_start)
             self.history["segment_rounds"].append(n)

@@ -2,7 +2,8 @@
 
 The port of the reference's ``fed/simulation.py``: a multi-α Dirichlet
 cohort over the synthetic Gaussian-mixture task, paper-cnn or
-paper-mlp, any of the six selectors and the server's round loop.  The data
+paper-mlp, any of the six selectors, any local update (Moon gets the
+model's penultimate features) and the server's round loop.  The data
 and the partition come from ``np.random.default_rng(spec.seed)`` by
 the reference's own code path, so both packages see identical arrays.
 """
@@ -20,7 +21,8 @@ from repro_torch.data import (SyntheticSpec, client_label_distributions,
 from repro_torch.fed.client import LocalSpec
 from repro_torch.fed.partition import multi_alpha_partition
 from repro_torch.fed.server import FedConfig, FederatedServer
-from repro_torch.models.classifier import make_classifier
+from repro_torch.models.classifier import (make_classifier,
+                                           make_classifier_with_features)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,9 +72,14 @@ def build(spec: ExperimentSpec, device="cuda"):
     ys = [ytr[p] for p in parts]
     X, Y, M = pad_and_stack(xs, ys)
     label_dists = client_label_distributions(ys, data_spec.num_classes)
-    init, apply, _ = make_classifier(cfg, input_dim=data_spec.dim)
+    if spec.local.algo == "moon":
+        init, apply, features = make_classifier_with_features(
+            cfg, input_dim=data_spec.dim)
+    else:
+        init, apply, _ = make_classifier(cfg, input_dim=data_spec.dim)
+        features = None
     server = FederatedServer(init, apply, fed_cfg, X, Y, M, test=test,
-                             device=dev)
+                             device=dev, features_fn=features)
     info = {"label_dists": label_dists, "client_alpha": client_alpha,
             "client_sizes": M.sum(axis=1), "prototypes": protos}
     return server, info

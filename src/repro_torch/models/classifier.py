@@ -79,8 +79,9 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
     return _to(out, device)
 
 
-def cnn_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """x (B, 196) -> logits (B, C)."""
+def cnn_features(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (B, 196) -> the penultimate ReLU activations (B, d_ff), Moon's
+    contrastive anchor."""
     b = x.shape[0]
     h = x.reshape(b, 1, IMG, IMG)
     for name in ("conv1", "conv2"):
@@ -88,14 +89,24 @@ def cnn_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
                             padding=2))
         h = F.max_pool2d(h, 2, ceil_mode=True)
     h = h.permute(0, 2, 3, 1).reshape(b, -1)   # NHWC flatten
-    h = F.relu(h @ params["fc"]["w"] + params["fc"]["b"])
+    return F.relu(h @ params["fc"]["w"] + params["fc"]["b"])
+
+
+def cnn_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (B, 196) -> logits (B, C)."""
+    h = cnn_features(params, x)
     return h @ params["lm_head"]["w"] + params["lm_head"]["b"]
+
+
+def mlp_features(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (B, input_dim) -> the penultimate ReLU activations (B, h)."""
+    h = F.relu(x @ params["fc1"]["w"] + params["fc1"]["b"])
+    return F.relu(h @ params["fc2"]["w"] + params["fc2"]["b"])
 
 
 def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     """x (B, input_dim) -> logits (B, C)."""
-    h = F.relu(x @ params["fc1"]["w"] + params["fc1"]["b"])
-    h = F.relu(h @ params["fc2"]["w"] + params["fc2"]["b"])
+    h = mlp_features(params, x)
     return h @ params["lm_head"]["w"] + params["lm_head"]["b"]
 
 
@@ -117,3 +128,13 @@ def make_classifier(cfg, input_dim: int = 64):
         return classifier_loss(apply(params, batch["x"]), batch["y"])
 
     return init, apply, loss_fn
+
+
+def make_classifier_with_features(cfg, input_dim: int = 64):
+    """(init, apply, features): :func:`make_classifier`'s init and apply
+    and the model's penultimate activations, which feed Moon's
+    contrastive term."""
+    init, apply, _ = make_classifier(cfg, input_dim)
+    features = (cnn_features if cfg.name.startswith("paper-cnn")
+                else mlp_features)
+    return init, apply, features

@@ -8,7 +8,8 @@ covers, as the reference's ``models/registry.py``.
   logits, cache = api.decode_step(params, cache, {"token": t, "pos": p})
 
 Only ``kind == "dense"`` is ported; MoE, VLM, SSM, hybrid and
-encoder-decoder configs raise ``NotImplementedError``.
+encoder-decoder configs raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.backend import resolve_device
 from repro_torch.configs import ModelConfig, get_config
+from repro_torch.core.selectors.functional import LM_SUBSTRATE, not_ported
 from repro_torch.models import transformer as TF
 from repro_torch.models.transformer import cache_geometry
 
@@ -69,8 +71,6 @@ def get_model(cfg_or_name) -> ModelApi:
         raise ValueError("classifier models use "
                          "repro_torch.models.classifier")
     if cfg.kind != "dense":
-        raise NotImplementedError(
-            f"get_model: kind={cfg.kind!r} is not ported; the port's LM "
-            "covers dense decoders")
+        raise not_ported("kind", cfg.kind, LM_SUBSTRATE)
     TF.require_dense(cfg)
     return _transformer_api(cfg)

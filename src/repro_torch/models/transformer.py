@@ -30,9 +30,7 @@ def require_dense(cfg) -> None:
     """Raise for a config the port's LM does not cover yet."""
     for name in _NOT_PORTED:
         if getattr(cfg, name) is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: configs with {name!r} are not ported; the "
-                "port's LM covers dense decoders")
+            raise not_ported(name, getattr(cfg, name), LM_SUBSTRATE)
 
 
 # ---------------------------------------------------------------------------

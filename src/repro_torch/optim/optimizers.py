@@ -1,10 +1,11 @@
 """Optimizers over nested param dicts, with ``lr_scale`` a tensor.
 
-The port of the reference's ``optim/optimizers.py``: ``sgd`` and
-``adam`` as (init, update) pairs, ``update`` returning the step per
-leaf, and ``clip_by_global_norm``.  The server's lr decay rides in as a
-0-d tensor, and adam's ``count`` is a 0-d int32 tensor, so a round step
-captured as a CUDA graph reads no host number.
+The port of the reference's ``optim/optimizers.py``: ``sgd``,
+``sgd_momentum`` and ``adam`` as (init, update) pairs, ``update``
+returning the step per leaf, and ``clip_by_global_norm``.  The server's
+lr decay rides in as a 0-d tensor, and momentum's and adam's ``count``
+is a 0-d int32 tensor, so a round step captured as a CUDA graph reads
+no host number.
 
 ``clip_by_global_norm_`` is the in-place form the LM fine-tuning driver
 applies leaf by leaf: at qwen2.5-3b's widths a second tree of clipped
@@ -63,6 +64,27 @@ def sgd(lr: float) -> Optimizer:
         step = -lr * lr_scale
         return (tree_map(lambda g: step * g, grads),
                 {"count": state["count"] + 1})
+
+    return Optimizer(init, update)
+
+
+def sgd_momentum(lr: float, momentum: float = 0.9) -> Optimizer:
+    """The reference's momentum: an EMA of the gradients,
+    ``m = β·m + (1 − β)·g``, and the step ``−lr·m`` (not
+    ``torch.optim.SGD``'s ``m = β·m + g``); ``count`` a 0-d int32
+    tensor."""
+    def init(params):
+        dev = _first_leaf(params).device
+        return {"m": tree_map(torch.zeros_like, params),
+                "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def update(grads, state, params=None, lr_scale=1.0):
+        del params
+        m = tree_map(lambda mm, g: momentum * mm + (1.0 - momentum) * g,
+                     state["m"], grads)
+        step_lr = -lr * lr_scale
+        return (tree_map(lambda mm: step_lr * mm, m),
+                {"m": m, "count": state["count"] + 1})
 
     return Optimizer(init, update)
 

@@ -6,9 +6,10 @@ Inputs come from seeded numpy; the samplers' Gumbel noise is replayed
 from the keys the reference draws with.  Ĥ is held to 5e-5; cluster
 labels and sampled ids must be identical.  Each test loops over its
 cases (``torch_parity.each``).  Also: the reference options the port
-does not run (selector, local update and driver) raise naming their
-ROADMAP.md item, and a 6-round HiCS run with ``gram_in_bf16`` on the
-CPU picks JAX's participants.
+does not run (``stale_slots``, telemetry) raise naming their ROADMAP.md
+item, the ported ones (every linkage and cluster count, every local
+update) build and run, and a 6-round HiCS run with ``gram_in_bf16`` on
+the CPU picks JAX's participants.
 """
 import numpy as np
 import pytest
@@ -33,6 +34,7 @@ from repro.fed import LocalSpec as JaxLocalSpec
 from repro.fed import build as jax_build
 from repro_torch.core import Observations as TObservations
 from repro_torch.core import make_functional
+from repro_torch.core.selectors import draw_select_noise
 from repro_torch.data import SyntheticSpec
 from repro_torch.fed import ExperimentSpec, FedConfig, LocalSpec, build
 from repro_torch.models import params_from_jax
@@ -216,25 +218,45 @@ def test_hics_functional_20_rounds_identical(incremental):
         assert torch.equal(tstate.dist_cache, tstate.dist_cache.T)
 
 
+SCENARIOS_ITEM = "queue 1: scenarios, the seed sweep and the async server"
+
+
 def _raises_unported(name, bad, fine):
-    """Each of ``bad`` raises (it used to vanish into ``**_kw``, and the
-    run then differed from the reference's); each of ``fine``, the
-    defaults and names no selector reads, still builds."""
+    """Each of ``bad`` raises naming the ROADMAP.md item that ports it
+    (it used to vanish into ``**_kw``, and the run then differed from
+    the reference's); each of ``fine``, the defaults, the ported values
+    and names no selector reads, builds and runs four select/update
+    rounds (three sweep rounds, then a clustered one for HiCS)."""
     kw = dict(num_clients=8, num_select=3, total_rounds=4, device="cpu")
     for opts in bad:
-        with pytest.raises(NotImplementedError,
-                           match="queue 1: the rest of the selector layer"):
+        with pytest.raises(NotImplementedError, match=SCENARIOS_ITEM):
             make_functional(name, **kw, **opts)
     for opts in fine:
-        make_functional(name, **kw, **opts).init()
+        _four_rounds(make_functional(name, **kw, num_classes=10,
+                                     feat_dim=10, **opts))
+
+
+def _four_rounds(fn):
+    gen = torch.Generator().manual_seed(0)
+    r = np.random.default_rng(0)
+    state = fn.init()
+    for t in range(4):
+        noise = draw_select_noise(gen, 8, 3, fn.num_clusters)
+        ids, state = fn.select(state, t, noise)
+        assert len(set(ids.tolist())) == 3
+        obs = (r.normal(size=(3, 10)) * 0.05).astype(np.float32)
+        state = fn.update(state, t, ids, TObservations(
+            bias_updates=torch.tensor(obs), full_updates=torch.tensor(obs),
+            losses=torch.rand(8)))
 
 
 def test_hics_unported_options_raise():
     _raises_unported(
-        "hics", [{"linkage": "average"}, {"linkage": "single"},
-                 {"linkage": "complete"}, {"num_clusters": 2},
-                 {"stale_slots": 2}, {"stale_slots": 2, "incremental": False}],
-        [{"linkage": "ward", "num_clusters": 3, "stale_slots": 1,
+        "hics", [{"stale_slots": 2}, {"stale_slots": 2, "incremental": False}],
+        [{"linkage": "average"}, {"linkage": "single", "num_clusters": 8},
+         {"linkage": "complete", "num_clusters": 1, "incremental": False},
+         {"num_clusters": 2},
+         {"linkage": "ward", "num_clusters": 3, "stale_slots": 1,
           "gram_in_bf16": True}, {"num_clusters": None, "stale_slots": 0},
          {"no_such_option": 5}])
 
@@ -254,21 +276,15 @@ def test_divfl_unported_options_raise():
 
 def test_unported_local_and_driver_options_raise():
     """The reference's ``LocalSpec``, ``FedConfig`` and
-    ``ExperimentSpec`` fields are taken; each value the port does not
-    run raises ``NotImplementedError`` naming its ROADMAP.md item by
-    title, an unknown algo or optimizer ``ValueError``, as the
-    reference's."""
-    local = "queue 1: the other local updates, momentum, and the estimator"
-    refused = [(lambda: LocalSpec(algo="fedprox"), local),
-               (lambda: LocalSpec(algo="feddyn", mu=0.01), local),
-               (lambda: LocalSpec(algo="moon", moon_tau=0.2), local),
-               (lambda: LocalSpec(optimizer="momentum"), local),
-               (lambda: FedConfig(telemetry=("selection",)),
-                "queue 1: telemetry"),
-               (lambda: build(ExperimentSpec(telemetry=["training"]),
-                              device="cpu"), "queue 1: telemetry")]
-    for make, item in refused:
-        with pytest.raises(NotImplementedError, match=item):
+    ``ExperimentSpec`` fields are taken.  Every algorithm × optimizer
+    pair builds and runs two rounds; telemetry, still refused, raises
+    ``NotImplementedError`` naming its ROADMAP.md item by title, an
+    unknown algo or optimizer ``ValueError``, as the reference's."""
+    refused = [lambda: FedConfig(telemetry=("selection",)),
+               lambda: build(ExperimentSpec(telemetry=["training"]),
+                             device="cpu")]
+    for make in refused:
+        with pytest.raises(NotImplementedError, match="queue 1: telemetry"):
             make()
     for bad in (dict(algo="fedsgd"), dict(optimizer="lamb")):
         with pytest.raises(ValueError, match="must be one of"):
@@ -280,7 +296,17 @@ def test_unported_local_and_driver_options_raise():
     cfg = FedConfig(local=spec, jit_rounds=False, telemetry=())
     assert not cfg.jit_rounds and cfg.telemetry == ()
     assert FedConfig(jit_rounds=True).jit_rounds      # ported
-    assert LocalSpec(optimizer="adam").optimizer == "adam"    # ported
+    for algo in ("fedavg", "fedprox", "feddyn", "moon"):
+        for optimizer in ("sgd", "momentum", "adam"):
+            local = LocalSpec(algo=algo, optimizer=optimizer, lr=0.05,
+                              epochs=1, batch_size=16, mu=0.01, moon_tau=0.2)
+            hist = build(ExperimentSpec(
+                arch="paper-mlp", num_clients=4, num_select=2, rounds=2,
+                alphas=(0.5,), local=local, samples_train=80,
+                samples_test=20, data=SyntheticSpec(dim=8)),
+                device="cpu")[0].run()
+            assert len(hist["selected"]) == 2
+            assert np.isfinite(hist["train_loss"]).all(), (algo, optimizer)
 
 
 def test_hics_bf16_run_picks_jax_participants():

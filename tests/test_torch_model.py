@@ -125,9 +125,9 @@ def _local_update_case(arch):
                        jnp.asarray(mask), rngs, jnp.float32(0.5))
     tlu = make_local_update(tapply, LocalSpec(lr=0.05, epochs=2,
                                               batch_size=32))
-    tnew, tmet = tlu(tparams, torch.tensor(x), torch.tensor(y),
-                     torch.tensor(mask), epoch_perms(k_loc, k, 2, s),
-                     torch.tensor(0.5))
+    tnew, _, tmet = tlu(tparams, {}, torch.tensor(x), torch.tensor(y),
+                        torch.tensor(mask), epoch_perms(k_loc, k, 2, s),
+                        torch.tensor(0.5))
     for name, p in to_np(tnew).items():
         for leaf, v in p.items():
             want = np.asarray(jnew[name][leaf])
@@ -148,8 +148,8 @@ def test_fully_masked_client_is_a_no_op():
                          for _ in range(2)])
     tlu = make_local_update(tapply, LocalSpec(lr=0.05, epochs=2,
                                               batch_size=32))
-    new, met = tlu(tparams, torch.tensor(x), torch.tensor(y),
-                   torch.tensor(mask), perms, torch.tensor(1.0))
+    new, _, met = tlu(tparams, {}, torch.tensor(x), torch.tensor(y),
+                      torch.tensor(mask), perms, torch.tensor(1.0))
     for name, p in tparams.items():
         for leaf, v in p.items():
             assert torch.equal(new[name][leaf][0], v)

@@ -184,7 +184,7 @@ def _no_host_reads(selector, kw):
     server, _ = build(_spec(selector, True, rounds=4, selector_kw=kw),
                       device="cpu")
     step = server._make_round_step()
-    carry = (server.params, server.state,
+    carry = (server.params, server.extras, server.state,
              torch.zeros((), dtype=torch.int32))
     draws = [server._draw_host(t) for t in range(4)]
     saved = {name: getattr(torch.Tensor, name) for name in HOST_READS}
@@ -203,7 +203,7 @@ def _no_host_reads(selector, kw):
     finally:
         for name, fn in saved.items():
             setattr(torch.Tensor, name, fn)
-    assert int(carry[2]) == 4 and len(set(out[0].tolist())) == 3
+    assert int(carry[3]) == 4 and len(set(out[0].tolist())) == 3
 
 
 def test_round_step_reads_nothing_on_the_host():

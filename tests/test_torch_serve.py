@@ -257,13 +257,27 @@ def test_cache_geometry_matches_jax():
 
 
 def test_non_dense_configs_raise():
+    """A model kind, an arch option or a reference arch name the port
+    does not run raises ``NotImplementedError`` naming its ROADMAP.md
+    item; a name neither package registers, ``KeyError``."""
     base = get_config(ARCH).reduced()
     from repro_torch.configs.base import MoEConfig, VLMConfig
+    item = "queue 1: the rest of the LM substrate"
     for cfg in (dataclasses.replace(base, moe=MoEConfig()),
                 dataclasses.replace(base, vlm=VLMConfig()),
                 dataclasses.replace(base, kind="ssm")):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match=item):
             get_model(cfg)
+    from repro.configs import list_archs
+    from repro_torch.configs.base import NOT_PORTED_ARCHS, _REGISTRY
+    assert set(NOT_PORTED_ARCHS) == set(list_archs()) - set(_REGISTRY)
+    for name in NOT_PORTED_ARCHS:
+        with pytest.raises(NotImplementedError, match=item):
+            get_config(name)
+        with pytest.raises(NotImplementedError, match=item):
+            get_model(name)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch-7b")
     with pytest.raises(ValueError):
         get_model("paper-cnn")
 
