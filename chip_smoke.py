@@ -60,7 +60,18 @@ card's Δb, the final cache against the plain versions, a profile of one
 local step, and a two-layer cut's local update on the card against the
 port's CPU run.  Last, phase ``finetune_example`` (alone: ``python3
 chip_smoke.py finetune_example``): ``repro_torch.examples.
-federated_finetune`` at its ~100M default, cut to 6 rounds.
+federated_finetune`` at its ~100M default, cut to 6 rounds.  Last,
+phase ``scenarios`` (alone: ``python3 chip_smoke.py scenarios``) at
+the slice's spec: the five partition kinds built on the card from CPU
+draws (bit-equal to the CPU's), ``run_sweep`` over four scenarios ×
+hics and cs × four seeds × 14 rounds (one CUDA graph a round for the
+four seeds; each seed bit-equal to its scanned run, picks available,
+each cell's first rounds against the CPU), the async server at identity
+latency (bit-equal to the sync scanned run), under stragglers and
+flash crowds (arrivals accounted, versions counted) and at M = 2K
+(``stale_slots`` = 2: the strip over 2K rows with repeated ids, the
+cache against from-scratch builds), and ``run_async_sweep`` over three
+traffic shapes.
 Prints one JSON line per phase, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": ...}``.  Exits non-zero, with no result
 line, without a CUDA device or when any check fails.
@@ -120,8 +131,16 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import make_selector  # noqa: E402
 from repro_torch.examples import federated_finetune  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
-from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import get_model, make_classifier  # noqa: E402
 from repro_torch.optim import tree_map  # noqa: E402
+from repro_torch.fed import (AsyncConfig, AsyncFederatedServer,  # noqa: E402
+                             FederatedServer)
+from repro_torch.scenarios import (SweepSpec,  # noqa: E402
+                                   availability_mask, build_pair,
+                                   make_dataset, run_async_sweep,
+                                   run_host_reference)
+from repro_torch.scenarios.registry import (  # noqa: E402
+    partition_generator)
 
 LAM = 10.0
 T_SLICE = 0.63
@@ -163,14 +182,17 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def check(name: str, got, want, atol: float, rtol: float = 0.0) -> float:
-    """Record whether ``got`` is within tolerance of ``want``; returns
-    the max absolute error."""
+def check(name: str, got, want, atol, rtol: float = 0.0) -> float:
+    """Record whether ``got`` is within tolerance of ``want`` (``atol``
+    a number, or a tensor of one per entry); returns the max absolute
+    error."""
     got, want = got.float(), want.float()
     err = float((got - want).abs().max()) if got.numel() else 0.0
     ok = (got.shape == want.shape and bool(torch.isfinite(got).all())
           and bool(((got - want).abs() <= atol + rtol * want.abs()).all()))
     if not ok:
+        if isinstance(atol, torch.Tensor):     # a tolerance per entry
+            atol = f"[{float(atol.min())}, {float(atol.max())}]"
         failures.append(f"{name}: max abs err {err} > {atol} + {rtol}|x|")
     return err
 
@@ -759,7 +781,7 @@ def round_split(server) -> dict:
 def first_rounds_vs_cpu(spec, dev, hist, tag: str,
                         horizon: int = CPU_ROUNDS,
                         select_rounds: int = CPU_ROUNDS,
-                        one_step: bool = False) -> dict:
+                        one_step: bool = False, make=None) -> dict:
     """The card run's first ``CPU_ROUNDS`` rounds against the port's own
     CPU run of the same spec.
 
@@ -779,7 +801,9 @@ def first_rounds_vs_cpu(spec, dev, hist, tag: str,
     ``one_step``, the cohort's first sgd step (its first batch) on the
     CPU from the card's round-start params and extras must move each
     leaf of the params and of the extras as the card's does, within
-    1e-3 of the leaf's largest move.
+    1e-3 of the leaf's largest move.  ``make(rounds, device)``, when
+    given, makes the servers in place of ``build`` of ``spec`` with
+    ``rounds`` rounds (the sweep's seeds: a server over a partition).
     The free-running train losses and the whole round's params and
     extras are printed, not held to a tolerance: paper-cnn's local
     training grows a last-bit difference to ~1e-3 of the loss within
@@ -789,15 +813,16 @@ def first_rounds_vs_cpu(spec, dev, hist, tag: str,
     from the same update in f64: ``tools/local_chaos.py``), so those
     comparisons measure the chaos of training rather than the port."""
     t0 = time.perf_counter()
-    short = dataclasses.replace(spec, rounds=CPU_ROUNDS)
-    cpu_hist = build(short, device="cpu")[0].run()
+    if make is None:
+        make = lambda rounds, d: build(
+            dataclasses.replace(spec, rounds=rounds), device=d)[0]
+    cpu_hist = make(CPU_ROUNDS, "cpu").run()
     require(f"{tag}: selected differs from the CPU run",
             cpu_hist["selected"][:horizon] == hist["selected"][:horizon])
     free = [abs(a - b) / abs(b) for a, b in
             zip(hist["train_loss"], cpu_hist["train_loss"])]
-    forced_spec = spec if select_rounds > CPU_ROUNDS else short
-    card = build(forced_spec, device=dev)[0]
-    cpu = build(forced_spec, device="cpu")[0]
+    forced_rounds = max(select_rounds, CPU_ROUNDS)
+    card, cpu = make(forced_rounds, dev), make(forced_rounds, "cpu")
     forced, forced_ids, extras_err, step_err = [], [], [], []
     writeback, clustered = [], 0
     for t in range(select_rounds):
@@ -805,8 +830,7 @@ def first_rounds_vs_cpu(spec, dev, hist, tag: str,
         p0, e0 = card.params, card.extras      # replaced, never written
         params, extras = _tree_cpu(p0), _tree_cpu(e0)
         clustered += int(card.state.unseen_count) == 0
-        ids_cpu, _ = cpu.selector.select(_cpu(card.state), t,
-                                         _cpu(rd.select))
+        ids_cpu, _ = cpu.select(_cpu(card.state), t, _tree_cpu(rd))
         ids, metrics = card.step(t, rd)
         forced_ids.append(ids_cpu.tolist() == ids.tolist())
         if t >= CPU_ROUNDS:
@@ -1367,11 +1391,11 @@ def round_step_syncs(server):
         torch.cuda.synchronize()
 
 
-def replay_ms(server, iters: int = 10) -> float:
-    """Device ms of one replay of the server's round graph (CUDA events
+def replay_ms(round_graph, iters: int = 10) -> float:
+    """Device ms of one replay of a captured ``RoundGraph`` (CUDA events
     over ``iters`` back-to-back replays after two warm ones; each
     replay advances the graph's own copy of the state)."""
-    graph = server._graph.graph
+    graph = round_graph.graph
     for _ in range(2):
         graph.replay()
     torch.cuda.synchronize()
@@ -1544,7 +1568,7 @@ def graph_run(label: str, selector: str, kw, host: dict, dev,
     second = server.history
     out["second_run_rounds_per_s"] = (sum(second["segment_rounds"][3:])
                                       / sum(second["segment_wall_s"][3:]))
-    out["replay_ms"] = replay_ms(server)
+    out["replay_ms"] = replay_ms(server._graph)
     if label == "hics":
         out["busy"] = busy_shares(server)
         out["host_busy"] = host_busy_share(
@@ -2377,6 +2401,390 @@ def finetune_example_phase(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the heterogeneity scenarios, the multi-seed sweep and the async server
+# ---------------------------------------------------------------------------
+
+SWEEP = SweepSpec(
+    scenarios=("mixed_80_20", "dir_severe", "flaky_severe", "diurnal_mixed"),
+    selectors=("hics", "cs"), seeds=(0, 1, 2, 3), arch="paper-cnn",
+    num_clients=50, num_select=5, rounds=ROUNDS, cap=800,
+    samples_train=10_000, samples_test=2_000, selector_kw=SELECTOR_KW,
+    local=SPEC.local, data=SPEC.data)
+ASYNC_SCENARIOS = ("stragglers_severe", "diurnal_heavy_tail", "flash_crowd")
+ASYNC_TICKS = 20
+
+
+def _launches_since_reset(fn):
+    """``fn()`` with every count set to 0 just before it; (its result,
+    its launches by kernel, its strip launches by epilogue)."""
+    kbuild.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, dict(kbuild.launches),
+            dict(kbuild.variant_launches["gram_update"]["epilogue"]))
+
+
+def _add(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def partitions_vs_cpu(dev) -> dict:
+    """Each partition kind, drawn once on the CPU, built on the card and
+    on the CPU from the same labels: ``idx``, ``mask`` and ``counts``
+    bit-equal."""
+    out = {}
+    for name in ("dir_severe", "mixed_80_20", "shards2", "quantity_skew",
+                 "iid"):
+        scn = SWEEP.scenario(name)
+        ncls = get_config(SWEEP.arch).vocab_size
+        train, _, _ = make_dataset(scn, SWEEP.samples_train, 0, ncls,
+                                   device="cpu")
+        y = train["y"]
+        draws = scn.draw(partition_generator(scn, 0), y.shape[0], ncls,
+                         SWEEP.num_clients)
+        cpu = scn.partition(draws, y, ncls, SWEEP.num_clients, SWEEP.cap)
+        card = scn.partition(draws, y.to(dev), ncls, SWEEP.num_clients,
+                             SWEEP.cap)
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+        require(f"scenarios: {scn.kind} partition differs card vs CPU",
+                same)
+        out[scn.kind] = {"bit_equal": same,
+                         "kept": int(cpu.mask.sum()),
+                         "max_count": int(cpu.counts.max())}
+    return out
+
+
+def _seed_server_maker(pair, i, spec):
+    """``make(rounds, device)`` of seed i of a sync cell: a host-loop
+    server on ``device`` over the seed's client arrays, with its seed
+    and availability schedule."""
+    srv = pair.servers[i]
+    arrays = [a.cpu().numpy() for a in (srv.x, srv.y, srv.mask)]
+    init, apply, _ = make_classifier(get_config(spec.arch),
+                                     input_dim=spec.data.dim)
+
+    def make(rounds, device):
+        cfg = dataclasses.replace(srv.cfg, rounds=rounds, jit_rounds=False)
+        return FederatedServer(init, apply, cfg, *arrays, device=device,
+                               availability=pair.scenario)
+
+    return make
+
+
+def sweep_cell(spec, scenario: str, selector: str, dev) -> tuple:
+    """One sync cell: the sweep twice (the graph captured in the first
+    run), each seed against the scanned driver alone (always-on
+    scenarios), the availability of every pick (time-varying ones),
+    seed 0's first rounds against the CPU.  Returns (the cell's record, its launches,
+    its strip launches by epilogue)."""
+    tag = f"scenarios sweep {scenario}/{selector}"
+    pair = build_pair(spec, scenario, selector, device=dev)
+    (ids, loss, ent, acc), launches, epi = _launches_since_reset(pair.run)
+    first_s = pair.wall_s
+    again = pair.run()
+    second_s = pair.wall_s
+    seeds, rounds = len(spec.seeds), spec.rounds
+    require(f"{tag}: {pair.captures} captures", pair.captures == 1)
+    require(f"{tag}: the second run differs from the first",
+            all(np.array_equal(a, b) for a, b in zip((ids, loss), again)))
+    require(f"{tag}: non-finite loss", bool(np.isfinite(loss).all()))
+    require(f"{tag}: participants not distinct",
+            all(len(set(r.tolist())) == spec.num_select
+                for r in ids.reshape(-1, spec.num_select)))
+    rec = {"cell": f"{scenario}/{selector}", "seeds": seeds,
+           "rounds": rounds, "launches": launches, "by_epilogue": epi,
+           "first_run_s": first_s, "second_run_s": second_s,
+           "rounds_per_s_first": seeds * rounds / first_s,
+           "rounds_per_s_second": seeds * rounds / second_s,
+           "replay_ms": replay_ms(pair.graph, iters=5),
+           "overflow_frac": pair.overflow_frac,
+           "final_acc": acc[:, -1].tolist(),
+           "train_loss_last": loss[:, -1].tolist()}
+    scn = pair.scenario
+    if scn.time_varying:
+        off = 0
+        for i, srv in enumerate(pair.servers):
+            for t in range(rounds):
+                avail = availability_mask(scn, spec.num_clients, t,
+                                          pair.draws[i][t].avail).cpu()
+                off += int((~avail[torch.as_tensor(ids[i, t]).long()]).sum())
+        require(f"{tag}: {off} picks unavailable in their round", off == 0)
+        rec["unavailable_picks"] = off
+    else:
+        same, walls = [], []
+        for i, seed in enumerate(spec.seeds):
+            host = run_host_reference(spec, scenario, selector, seed,
+                                      jit_rounds=True, device=dev)
+            same.append(host["selected"] == ids[i].tolist()
+                        and np.array_equal(np.float32(host["train_loss"]),
+                                           loss[i]))
+            walls.append(sum(host["segment_wall_s"]))
+        require(f"{tag}: a seed differs from its scanned run {same}",
+                all(same))
+        rec["bit_equal_to_scanned"] = same
+        rec["serial_rounds_per_s_with_capture"] = seeds * rounds / sum(
+            walls)
+    hist = {"selected": ids[0].tolist(), "train_loss": loss[0].tolist()}
+    rec["vs_cpu"] = first_rounds_vs_cpu(
+        None, dev, hist, tag, make=_seed_server_maker(pair, 0, spec))
+    del pair
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches, epi
+
+
+def serial_timing(spec, scenario: str, selector: str, dev) -> dict:
+    """The cell's seeds one after another through the scanned driver,
+    each run twice (the second without its capture): rounds/s."""
+    first = second = 0.0
+    for seed in spec.seeds:
+        srv = build_pair(dataclasses.replace(spec, seeds=(seed,)), scenario,
+                         selector, device=dev).servers[0]
+        srv.test = None
+        srv.run()
+        first += sum(srv.history["segment_wall_s"])
+        srv.run()
+        second += srv.history["segment_wall_s"][-1]
+        del srv
+    n = len(spec.seeds) * spec.rounds
+    return {"cell": f"{scenario}/{selector}",
+            "serial_rounds_per_s_first": n / first,
+            "serial_rounds_per_s_second": n / second}
+
+
+def _arrivals(srv, selected) -> np.ndarray:
+    """Each tick's arrivals from the dispatches and the delay tables."""
+    ticks = selected.shape[0]
+    base = srv._base_delay.cpu().numpy()
+    delay = np.clip(base[selected] + srv._jitter.numpy()[:ticks], 0,
+                    srv._window - 1)
+    due = (np.arange(ticks)[:, None] + delay).ravel()
+    return np.bincount(due[due < ticks], minlength=ticks)
+
+
+def async_server(scenario: str, dev, ticks=ASYNC_TICKS, seed=0, **kw):
+    """The async server over seed ``seed``'s partition of the
+    scenario's data, with the scenario's latency model."""
+    spec = dataclasses.replace(SWEEP, seeds=(seed,), rounds=ticks)
+    k = spec.num_select
+    m = kw.get("threshold", 0) or k
+    sel_kw = dict(SELECTOR_KW, stale_slots=-(-m // k))
+    scn = spec.scenario(scenario)
+    acfg = AsyncConfig(
+        num_clients=spec.num_clients, num_select=k, ticks=ticks,
+        selector="hics", selector_kw=sel_kw, local=spec.local,
+        latency=scn.latency, eval_every=5, seed=seed, **kw)
+    pair = build_pair(spec, scenario, "hics", device=dev)
+    srv0 = pair.servers[0]
+    init, apply, _ = make_classifier(get_config(spec.arch),
+                                     input_dim=spec.data.dim)
+    return AsyncFederatedServer(
+        init, apply, acfg, srv0.x.cpu().numpy(), srv0.y.cpu().numpy(),
+        srv0.mask.cpu().numpy(), test={k: v.cpu().numpy()
+                                       for k, v in srv0.test.items()},
+        device=dev)
+
+
+def async_record(tag, srv, hist) -> dict:
+    ids = np.asarray(hist["selected"])
+    arrivals = _arrivals(srv, ids)
+    got = np.asarray(hist["accepted"]) + np.asarray(hist["dropped"])
+    require(f"{tag}: accepted + dropped differ from the arrivals",
+            np.array_equal(got, arrivals))
+    require(f"{tag}: final version {hist['version'][-1]} but "
+            f"{hist['aggregations']} fired ticks",
+            hist["version"][-1] == hist["aggregations"])
+    require(f"{tag}: non-finite loss",
+            bool(np.isfinite(hist["train_loss"]).all()))
+    seg = hist["segment_rounds"]
+    return {"ticks": len(hist["round"]), "captures": srv.captures,
+            "aggregations": hist["aggregations"],
+            "dropped_total": hist["dropped_total"],
+            "mean_fill": hist["mean_fill"],
+            "arrivals": arrivals.tolist(), "accepted": hist["accepted"],
+            "dropped": hist["dropped"], "version": hist["version"],
+            "ticks_per_s": hist["ticks_per_s"],
+            "ticks_per_s_after_capture": sum(seg[1:])
+            / sum(hist["segment_wall_s"][1:]),
+            "replay_ms": replay_ms(srv._graph),
+            "test_acc": hist["test_acc"]}
+
+
+def _eq9_f64(x, temperature, lam):
+    """The Eq. 9 matrix of ``x`` (rows RMS-normalized for Ĥ) in f64 on
+    the CPU, and its cosines."""
+    x = x.double().cpu()
+    v = x / torch.sqrt((x * x).mean(dim=1, keepdim=True)).clamp(min=1e-12)
+    p = torch.softmax(v / temperature, dim=1)
+    h = -(p * torch.log(p.clamp(min=1e-300))).sum(dim=1)
+    n = torch.linalg.vector_norm(x, dim=1).clamp(min=1e-8)
+    cos = ((x @ x.T) / (n[:, None] * n[None, :])).clamp(-1.0, 1.0)
+    d = torch.arccos(cos) + lam * (h[:, None] - h[None, :]).abs()
+    d.fill_diagonal_(0.0)
+    return d, cos
+
+
+def stale_ring_checks(srv, dev) -> dict:
+    """The M = 2K run's final state: the ring's strip (2K rows, repeated
+    ids) against its plain version, and the cache after its pending
+    refresh against a from-scratch build by the plain version and by
+    the pairwise kernel, on every pair of distinct clients whose Δb rows
+    were written (a never-written row's cached stats keep their initial
+    0, where a from-scratch build reads the zero row's Ĥ), each entry
+    within 1e-5 + 1e-5|x| + 1e-6/sin θ: the last term is a cosine's f32
+    rounding through arccos near θ = 0 (θ from an f64 build)."""
+    st = srv.state
+    ids = st.stale_ids.long()
+    repeated = len(set(ids.tolist())) < ids.numel()
+    strip_ids = ids if repeated else torch.cat([ids[:-1], ids[:1]])
+    x = st.delta_b.float().contiguous()
+    stats = stats_of(x, T_SLICE, True).contiguous()
+    got = gram_strip(x[strip_ids].contiguous(), x,
+                     stats[strip_ids].contiguous(), stats,
+                     strip_ids.to(torch.int32), LAM)
+    want = ref.distance_strip_ref(x, stats, strip_ids, LAM)
+    out = {"ring": ids.tolist(), "run_ring_repeats_an_id": repeated,
+           "strip_rows": int(strip_ids.numel()),
+           "strip_max_abs_err": check(
+               "scenarios: the 2K strip vs plain", got, want, 1e-5, 1e-5)}
+    _, dist_c, stats_c = ops.hics_selection_step_cached(
+        st.delta_b, st.dist_cache, st.row_stats, st.stale_ids, T_SLICE,
+        LAM, normalize=True, device=dev)
+    _, dist_k = ops.hics_selection_step(st.delta_b, T_SLICE, LAM,
+                                        normalize=True, device=dev)
+    ent_p, dist_p = ref.selection_step_ref(st.delta_b, T_SLICE, LAM,
+                                           normalize=True)
+    written = st.delta_b.abs().sum(dim=1) > 0
+    pairs = (written[:, None] & written[None, :]
+             & ~torch.eye(written.numel(), dtype=torch.bool, device=dev))
+    pick = lambda d: d[pairs]
+    # the worst pair against the plain build, beside an f64 build
+    d64, cos64 = _eq9_f64(st.delta_b, T_SLICE, LAM)
+    gap = torch.where(pairs, (dist_c - dist_p).abs(), 0.0)
+    u, v = divmod(int(torch.argmax(gap)), gap.shape[1])
+    out["worst_pair"] = {
+        "pair": [u, v], "cos_f64": float(cos64[u, v]),
+        "cache": float(dist_c[u, v]), "plain": float(dist_p[u, v]),
+        "pairwise": float(dist_k[u, v]), "f64": float(d64[u, v])}
+    err64 = {name: float((d.double().cpu() - d64)[pairs.cpu()].abs().max())
+             for name, d in (
+        ("cache", dist_c), ("plain", dist_p), ("pairwise", dist_k))}
+    out["max_abs_err_vs_f64"] = err64
+    # arccos amplifies the cosine's f32 rounding by 1/sin θ: a pair
+    # with cos 0.9998 (θ 0.019 rad, as severe skew makes) turns a few
+    # ulps of its cosine into 1e-5 of distance, in every build alike
+    sin64 = torch.sqrt((1.0 - cos64 ** 2).clamp(min=0.0)).float().to(dev)
+    cond = pick(1e-6 / sin64.clamp(min=1e-3))
+    out.update({
+        "written_rows": int(written.sum()),
+        "cache_vs_plain": check("scenarios: the 2K cache vs plain",
+                                pick(dist_c), pick(dist_p), 1e-5 + cond,
+                                1e-5),
+        "cache_vs_pairwise": check("scenarios: the 2K cache vs pairwise",
+                                   pick(dist_c), pick(dist_k), 1e-5 + cond,
+                                   1e-5),
+        "largest_conditioning_term": float(cond.max()),
+        "entropy_vs_plain": check("scenarios: the 2K cached Ĥ vs plain",
+                                  stats_c[written, 1], ent_p[written],
+                                  5e-5),
+        "bit_symmetric": bool(torch.equal(dist_c, dist_c.T))})
+    require("scenarios: the 2K cache not bit-symmetric",
+            out["bit_symmetric"])
+    return out
+
+
+def scenarios_phase(dev) -> tuple:
+    """The heterogeneity scenarios, the multi-seed sweep and the async
+    server at the slice's spec (paper-cnn at full width, N 50, K 5,
+    10,000/2,000 samples, cap 800).  Returns the launches of the phase's
+    main-path runs (each with the counts set to 0 just before it), by
+    kernel and the strip's by epilogue."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches, by_epi = {}, {}
+    out = {"phase": "scenarios", "card": CARD,
+           "partitions": partitions_vs_cpu(dev), "sweep": []}
+    for scenario in SWEEP.scenarios:
+        for selector in SWEEP.selectors:
+            rec, n, e = sweep_cell(SWEEP, scenario, selector, dev)
+            _add(launches, n)
+            _add(by_epi, e)
+            out["sweep"].append(rec)
+    out["serial"] = serial_timing(SWEEP, "mixed_80_20", "hics", dev)
+
+    # the async server at identity latency, B = M = K: the sync scanned
+    # driver on the same data, bit for bit
+    sync = build_pair(dataclasses.replace(SWEEP, seeds=(0,)), "mixed_80_20",
+                      "hics", device=dev).servers[0]
+    hs = sync.run()
+    asrv = async_server("mixed_80_20", dev, ticks=SWEEP.rounds)
+    ha, n, e = _launches_since_reset(asrv.run)
+    _add(launches, n)
+    _add(by_epi, e)
+    same = {"selected": ha["selected"] == hs["selected"],
+            "train_loss": ha["train_loss"] == hs["train_loss"],
+            "params": all(torch.equal(a, b) for a, b in zip(
+                _leaves(asrv.params), _leaves(sync.params)))}
+    require(f"scenarios: identity async differs from sync {same}",
+            all(same.values()))
+    out["identity"] = {"bit_equal": same,
+                       "ticks_per_s": ha["ticks_per_s"],
+                       "sync_rounds_per_s": hs["rounds_per_s"]}
+    del sync, asrv
+
+    out["async"] = {}
+    for scenario in ("stragglers_severe", "flash_crowd"):
+        srv = async_server(scenario, dev, capacity=10, threshold=5)
+        hist, n, e = _launches_since_reset(srv.run)
+        _add(launches, n)
+        _add(by_epi, e)
+        out["async"][scenario] = async_record(
+            f"scenarios async {scenario}", srv, hist)
+        del srv
+    srv = async_server("stragglers_severe", dev, capacity=20, threshold=10)
+    require("scenarios: the M = 2K ring is not 2K long",
+            srv.state.stale_ids.numel() == 2 * SWEEP.num_select)
+    hist, n, e = _launches_since_reset(srv.run)
+    _add(launches, n)
+    _add(by_epi, e)
+    rec = async_record("scenarios async M=2K", srv, hist)
+    rec["stale_ring"] = stale_ring_checks(srv, dev)
+    out["async"]["stragglers_severe_M10_B20"] = rec
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    aspec = dataclasses.replace(SWEEP, scenarios=ASYNC_SCENARIOS,
+                                selectors=("hics",))
+    res, n, e = _launches_since_reset(lambda: run_async_sweep(
+        aspec, capacity=10, threshold=5, device=dev))
+    _add(launches, n)
+    _add(by_epi, e)
+    out["async_sweep"] = {}
+    for cell, c in res["grid"].items():
+        require(f"scenarios async sweep {cell}: non-finite loss",
+                bool(np.isfinite(c["train_loss"]).all()))
+        out["async_sweep"][cell] = {
+            key: c[key] for key in ("aggregations", "dropped_total",
+                                    "mean_fill", "final_version",
+                                    "final_acc", "wall_s")}
+        out["async_sweep"][cell]["ticks_per_s"] = (
+            len(aspec.seeds) * aspec.rounds / c["wall_s"])
+    for name in ("fused_stats", "gram_update"):
+        require(f"scenarios: {name} was not launched", launches[name] > 0)
+    for epi in ("arccos", "cosine"):
+        require(f"scenarios: no {epi} strip", by_epi[epi] > 0)
+    out.update({"launches": launches, "launches_by_epilogue": by_epi,
+                "seconds": time.perf_counter() - t0})
+    emit(out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, by_epi
+
+
 def _paths(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -2395,7 +2803,8 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    alone = ("graph_rounds", "lm_train", "local_algos", "finetune_example")
+    alone = ("graph_rounds", "lm_train", "local_algos", "finetune_example",
+             "scenarios")
     if argv and (len(argv) > 1 or argv[0] not in alone):
         print(f"usage: chip_smoke.py [{' | '.join(alone)}]", file=sys.stderr)
         return 2
@@ -2422,7 +2831,8 @@ def main(argv) -> int:
         {"graph_rounds": lambda: graph_rounds_phase(dev, {}),
          "lm_train": lambda: lm_train_phase(dev),
          "local_algos": lambda: local_algos_phase(dev),
-         "finetune_example": lambda: finetune_example_phase(dev)}[argv[0]]()
+         "finetune_example": lambda: finetune_example_phase(dev),
+         "scenarios": lambda: scenarios_phase(dev)}[argv[0]]()
         for f in failures:
             print("FAILED:", f, file=sys.stderr)
         return 1 if failures else 0
@@ -2447,6 +2857,7 @@ def main(argv) -> int:
     del res
     lm_launches = lm_train_phase(dev)
     ft_launches = finetune_example_phase(dev)
+    scn_launches, scn_epilogues = scenarios_phase(dev)
 
     # the strip kernel's three epilogues, each counted on its own path:
     # arccos in the HiCS slice and its bf16 run, cosine in the cs run,
@@ -2531,6 +2942,9 @@ def main(argv) -> int:
         kern["launches_local_algos_graph"] = local_graph_launches[
             kern["name"]]
         kern["launches_finetune"] = ft_launches[kern["name"]]
+        # phase scenarios: the sweeps and the async runs
+        kern["launches_scenarios"] = scn_launches[kern["name"]]
+    strip["launches_scenarios_by_epilogue"] = scn_epilogues
     # the arccos strip at the LM fine-tune's K2×N8×C151,936
     strip["lm_path"] = {key: lm_strip[key] for key in keys + (
         "bound_by", "max_abs_err", "unsplit_max_abs_err")}

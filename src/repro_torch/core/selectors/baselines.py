@@ -42,13 +42,11 @@ from repro_torch.core.clustering import agglomerate_device
 from repro_torch.core.sampling import (_topk_stable, coverage_sweep_device,
                                        weighted_sample_device)
 from repro_torch.core.selectors.base import ClientSelector
-from repro_torch.core.selectors.functional import (SCENARIOS,
-                                                   FunctionalSelector,
+from repro_torch.core.selectors.functional import (FunctionalSelector,
                                                    Observations,
                                                    SelectNoise,
                                                    SelectorState, cond,
                                                    init_state, mark_seen,
-                                                   not_ported,
                                                    refresh_cache,
                                                    round_index,
                                                    stale_append)
@@ -195,11 +193,11 @@ def cs_functional(num_clients: int, num_select: int, total_rounds: int,
     """Clustered Sampling [11]: ward clustering of the participants'
     full updates under the angular distance, one pick per cluster ∝
     p_k.  ``feat_dim`` is the raw flattened-update width the server
-    observes.  ``stale_slots`` other than 1 is not ported (raises)."""
+    observes.  ``stale_slots`` sizes the ring of staled ids, L =
+    ``stale_slots``·K (see ``hics_functional``)."""
     n = int(num_clients)
     k = min(int(num_select), n)
-    if max(1, int(stale_slots)) != 1:
-        raise not_ported("stale_slots", stale_slots, SCENARIOS)
+    stale_len = k * max(1, int(stale_slots))
     project, feat_width = _make_projector(proj_dim, proj_seed, proj_signs)
     f_dim = max(1, feat_width(int(feat_dim)))
     incremental = bool(incremental)
@@ -208,7 +206,7 @@ def cs_functional(num_clients: int, num_select: int, total_rounds: int,
     def init():
         return init_state(n, weights, feat_dim=f_dim,
                           dist_cache=incremental,
-                          stale_len=k if incremental else 0, device=device)
+                          stale_len=stale_len if incremental else 0, device=device)
 
     def select(state: SelectorState, t: int, noise: SelectNoise):
         if incremental:
@@ -303,12 +301,11 @@ def divfl_functional(num_clients: int, num_select: int, total_rounds: int,
     break toward the smallest id.  In the first greedy step every gain
     is +inf and the reference's quotient inf/inf is NaN, which its
     argmax takes as the maximum; the port maps NaN to +inf, which
-    picks the same first index.  ``stale_slots`` other than 1 is not
-    ported (raises)."""
+    picks the same first index.  ``stale_slots`` sizes the ring of
+    staled ids, L = ``stale_slots``·K (see ``hics_functional``)."""
     n = int(num_clients)
     k = min(int(num_select), n)
-    if max(1, int(stale_slots)) != 1:
-        raise not_ported("stale_slots", stale_slots, SCENARIOS)
+    stale_len = k * max(1, int(stale_slots))
     if refresh not in ("all", "selected"):
         raise ValueError(f"refresh must be 'all' or 'selected', got "
                          f"{refresh!r}")
@@ -322,7 +319,7 @@ def divfl_functional(num_clients: int, num_select: int, total_rounds: int,
     def init():
         return init_state(n, weights, feat_dim=f_dim,
                           dist_cache=incremental,
-                          stale_len=k if incremental else 0, device=device)
+                          stale_len=stale_len if incremental else 0, device=device)
 
     def select(state: SelectorState, t: int, noise: SelectNoise):
         if incremental:

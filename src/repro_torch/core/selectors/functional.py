@@ -47,8 +47,10 @@ class SelectNoise(NamedTuple):
     cluster_pick: torch.Tensor
 
 
-def _gumbel(gen: torch.Generator, shape) -> torch.Tensor:
+def draw_gumbel(gen: torch.Generator, shape) -> torch.Tensor:
+    """Standard Gumbel f32 draws of ``shape``, on the CPU from ``gen``."""
     return -torch.empty(shape).exponential_(generator=gen).log()
+
 
 
 def draw_select_noise(gen: torch.Generator, n: int, k: int,
@@ -58,10 +60,10 @@ def draw_select_noise(gen: torch.Generator, n: int, k: int,
     order: the server's draws, and the OO shim's when no noise is
     given."""
     k = min(k, n)
-    return SelectNoise(cover=_gumbel(gen, (n,)),
-                       cluster=_gumbel(gen, (k, k if m is None else m)),
-                       client=_gumbel(gen, (k, n)),
-                       cluster_pick=_gumbel(gen, (k, n)))
+    return SelectNoise(cover=draw_gumbel(gen, (n,)),
+                       cluster=draw_gumbel(gen, (k, k if m is None else m)),
+                       client=draw_gumbel(gen, (k, n)),
+                       cluster_pick=draw_gumbel(gen, (k, n)))
 
 
 class Observations(NamedTuple):
@@ -154,7 +156,6 @@ def init_state(num_clients: int, weights=None, num_classes: int = 0,
 
 #: ROADMAP.md's queue 1 items, by title, that port the options the
 #: port still refuses
-SCENARIOS = "queue 1: scenarios, the seed sweep and the async server"
 TELEMETRY = "queue 1: telemetry"
 LM_SUBSTRATE = "queue 1: the rest of the LM substrate"
 

@@ -16,7 +16,10 @@ two-stage Eq. 10 sampler.
 ``gram_in_bf16`` rounds the two Gram operands to bf16 in both kernels
 (f32 sums; the stats stay f32).  On the CPU the plain versions ignore
 it and stay f32, as the reference's CPU oracle does.  ``stale_slots``
-other than 1 is not ported: it raises.
+sizes the ring of staled ids, L = ``stale_slots``·K, so that up to
+that many cohorts' updates (the async server's aggregations of M > K
+arrivals) wait between refreshes; the refresh covers all L slots,
+rows already fresh again (idempotent), repeated ids included.
 
 Both run on the state's device: the CUDA kernels on the card, the
 plain versions on the CPU.  The two branch tests go
@@ -38,13 +41,11 @@ from repro_torch.core.hetero import estimate_entropy
 from repro_torch.core.sampling import (anneal_device, coverage_sweep_device,
                                        hierarchical_sample_device)
 from repro_torch.core.selectors.base import ClientSelector
-from repro_torch.core.selectors.functional import (SCENARIOS,
-                                                   FunctionalSelector,
+from repro_torch.core.selectors.functional import (FunctionalSelector,
                                                    Observations,
                                                    SelectNoise,
                                                    SelectorState, cond,
                                                    init_state, mark_seen,
-                                                   not_ported,
                                                    refresh_cache,
                                                    stale_append)
 from repro_torch.kernels import ops
@@ -62,8 +63,7 @@ def hics_functional(num_clients: int, num_select: int, total_rounds: int,
     k = min(int(num_select), n)
     m = int(num_clusters) if num_clusters else k
     check_linkage(linkage)
-    if max(1, int(stale_slots)) != 1:
-        raise not_ported("stale_slots", stale_slots, SCENARIOS)
+    stale_len = k * max(1, int(stale_slots))
     gram_in_bf16 = bool(gram_in_bf16)
     temperature, lam, gamma0 = float(temperature), float(lam), float(gamma0)
     tr = float(total_rounds)
@@ -73,7 +73,7 @@ def hics_functional(num_clients: int, num_select: int, total_rounds: int,
     def init() -> SelectorState:
         return init_state(n, weights, num_classes=num_classes,
                           dist_cache=incremental,
-                          stale_len=k if incremental else 0,
+                          stale_len=stale_len if incremental else 0,
                           device=device)
 
     def select(state: SelectorState, t: int, noise: SelectNoise):

@@ -42,6 +42,13 @@ Two drivers over the same round, :meth:`FederatedServer._round`:
   round order, from the same generator as the host loop's, and its
   per-round outputs are read once at its end, before the evaluation.
   Both drivers pick the same participants.
+
+:meth:`FederatedServer.from_partition` builds a server over a dataset
+and a fixed-capacity partition (``repro_torch.scenarios``); given a
+time-varying ``availability`` schedule, each round also draws its
+availability draws and selects through ``scenarios.masked_select``.
+The buffered-async server (``fed.async_server``) reuses this class's
+draws, local update and segmented driver with its own tick step.
 """
 from __future__ import annotations
 
@@ -59,6 +66,7 @@ from repro_torch.core.selectors import (Observations, SelectNoise,
                                         make_functional)
 from repro_torch.core.selectors.functional import (TELEMETRY,
                                                    both_branches,
+                                                   draw_gumbel,
                                                    draw_select_noise,
                                                    not_ported, round_index,
                                                    state_entropies)
@@ -96,11 +104,33 @@ class RoundDraws(NamedTuple):
     perms: torch.Tensor          # (K, epochs, S_max) int64
     #: (N, 1, S_max) int64 for the all-clients poll (``full_all``)
     grad_perms: Optional[torch.Tensor] = None
+    #: under a time-varying availability schedule: the dropout's (N,)
+    #: uniform f32 and the replacement's (N,) standard Gumbel f32
+    #: (``scenarios.availability``)
+    avail: Optional[torch.Tensor] = None
+    repl: Optional[torch.Tensor] = None
+    #: the async server's tick: the latency model's (K,) int32 jitter row
+    jitter: Optional[torch.Tensor] = None
 
 
-def aggregate_params(new_params: dict) -> dict:
-    """θ^{t+1} = (1/K) Σ θ_k over the cohort's stacked params (K, ...)."""
-    return tree_map(lambda stacked: stacked.mean(dim=0), new_params)
+def aggregate_params(new_params: dict, weights=None) -> dict:
+    """θ^{t+1} from the cohort's stacked local params (K, ...).
+
+    ``weights=None`` is the sync drivers' mean (1/K) Σ θ_k.  With a
+    (K,) ``weights`` tensor the normalized weighted mean Σ w_k θ_k /
+    Σ w_k is computed as ``mean(θ_k · w̃_k)`` with ``w̃ = w·K/Σw``, the
+    form the async server's staleness weighting uses: when every weight
+    is equal (all ages 0, w_k = 1), ``w̃`` is exactly 1.0 and the
+    weighted mean is bit-identical to the unweighted one, which the
+    async server's identity-latency parity rests on."""
+    if weights is None:
+        return tree_map(lambda stacked: stacked.mean(dim=0), new_params)
+    w = weights.to(torch.float32)
+    tot = w.sum()
+    scale = w * (torch.full_like(tot, float(w.shape[0])) / tot)
+    return tree_map(lambda stacked: (stacked * scale.reshape(
+        (stacked.shape[0],) + (1,) * (stacked.dim() - 1))).mean(dim=0),
+        new_params)
 
 
 def flatten_params(tree: dict, lead: int = 0) -> torch.Tensor:
@@ -163,9 +193,11 @@ class RoundGraph:
     draws into the static draws and replays.  A capture records its
     kernels' launches without making them: the counts of
     ``kernels.build`` are set back after it, and each replay adds the
-    captured launches."""
+    captured launches.  ``carry``, ``draws`` and the outputs may be any
+    nesting of dicts and tuples of tensors: the sweep captures its
+    seeds' round steps, one after another, in one graph."""
 
-    def __init__(self, step: Callable, carry, draws: RoundDraws):
+    def __init__(self, step: Callable, carry, draws):
         self.carry = tree_map(torch.clone, carry)
         self.draws = tree_map(torch.clone, draws)
         self.stream = torch.cuda.Stream()
@@ -185,13 +217,13 @@ class RoundGraph:
         """Start the next replay from ``carry``."""
         _copy_into(self.carry, carry)
 
-    def replay(self, draws: RoundDraws) -> tuple:
+    def replay(self, draws) -> tuple:
         """One round from the static carry with ``draws``; returns
         copies of its outputs."""
         _copy_into(self.draws, draws)
         self.graph.replay()
         kernel_build.add_counts(self.launches)
-        return tuple(o.clone() for o in self.outputs)
+        return tree_map(torch.clone, self.outputs)
 
 
 class FederatedServer:
@@ -208,7 +240,7 @@ class FederatedServer:
                  client_x: np.ndarray, client_y: np.ndarray,
                  client_mask: np.ndarray,
                  test: Optional[Dict[str, np.ndarray]] = None,
-                 device="cuda", features_fn=None):
+                 device="cuda", features_fn=None, availability=None):
         if client_x.shape[0] != cfg.num_clients:
             raise ValueError("client_x must have num_clients rows")
         self.cfg = cfg
@@ -250,6 +282,14 @@ class FederatedServer:
         self._round_step: Optional[Callable] = None
         self._graph: Optional[RoundGraph] = None
         self.captures = 0
+        #: a time-varying availability schedule (a ``scenarios.
+        #: Scenario``): each round draws its (N,) uniform and Gumbel
+        #: draws and selects through ``scenarios.masked_select``
+        self.availability = None
+        if getattr(availability, "time_varying", False):
+            from repro_torch.scenarios import availability as avail_mod
+            self.availability = availability
+            self._avail = avail_mod
         # timing: wall_s per host-loop round; segment_wall_s and
         # segment_rounds per scanned segment (its draws and its one
         # read of the outputs included, the first one's capture too);
@@ -282,9 +322,39 @@ class FederatedServer:
                              for _ in range(epochs)])
                 for _ in range(rows)])
 
-        return RoundDraws(
+        rd = RoundDraws(
             noise, perms(k, cfg.local.epochs),
             perms(n, 1) if "full_all" in self.requires else None)
+        if self.availability is not None:
+            rd = rd._replace(avail=torch.rand(n, generator=gen),
+                             repl=draw_gumbel(gen, (n,)))
+        return rd
+
+    @classmethod
+    def from_partition(cls, init_fn, apply_fn, cfg: FedConfig, x, y,
+                       partition,
+                       test: Optional[Dict[str, np.ndarray]] = None,
+                       device="cuda", features_fn=None, availability=None):
+        """A server over a dataset and a fixed-capacity partition (a
+        ``scenarios.Partition``): the client tensors are the rows
+        ``x[idx]``, ``y[idx]`` gathered through its index layout, the
+        mask its mask."""
+        idx = np.asarray(torch.as_tensor(partition.idx).cpu())
+        as_np = lambda a: np.asarray(torch.as_tensor(a).cpu())
+        return cls(init_fn, apply_fn, cfg, as_np(x)[idx], as_np(y)[idx],
+                   as_np(partition.mask).astype(np.float32), test=test,
+                   device=device, features_fn=features_fn,
+                   availability=availability)
+
+    def select(self, state, t: torch.Tensor, rd: RoundDraws):
+        """The round's select: the selector's own, or under the
+        availability schedule through ``masked_select``."""
+        if self.availability is None:
+            return self.selector.select(state, t, rd.select)
+        avail = self._avail.availability_mask(
+            self.availability, self.cfg.num_clients, t, rd.avail)
+        return self._avail.masked_select(self.selector, state, t,
+                                         rd.select, avail, rd.repl)
 
     def local_update(self, t, ids: torch.Tensor, perms: torch.Tensor,
                      params: Optional[dict] = None,
@@ -330,7 +400,7 @@ class FederatedServer:
         """One round, functional: select, local update, aggregate,
         observe, update.  Returns (params, extras, state, ids, the
         cohort's metrics); writes into nothing it is given."""
-        ids, state = self.selector.select(state, t, rd.select)
+        ids, state = self.select(state, t, rd)
         new_params, new_extras, metrics = self.local_update(
             t, ids, rd.perms, params, extras)
         idx = ids.long()
@@ -398,12 +468,11 @@ class FederatedServer:
         """The scanned driver: the round step in segments of
         ``eval_every`` rounds, replayed as one CUDA graph a round on the
         card (a capture that fails raises), run eagerly on the CPU."""
-        cfg, dev = self.cfg, self.device
+        cfg = self.cfg
         draws = draws or self._draw_host
         if self._round_step is None:
             self._round_step = self._make_round_step()
-        carry = (self.params, self.extras, self.state,
-                 torch.zeros((), dtype=torch.int32, device=dev))
+        carry = self._initial_carry()
         if self._graph is not None:
             self._graph.load(carry)
         seg_len = cfg.eval_every if self.test is not None else cfg.rounds
@@ -411,24 +480,42 @@ class FederatedServer:
         while t < cfg.rounds:
             n = min(seg_len, cfg.rounds - t)
             t_start = time.perf_counter()
-            with torch.profiler.record_function(f"fed/scan_segment[{n}]"):
+            with torch.profiler.record_function(f"{self._span}[{n}]"):
                 carry, outs = self._segment(carry, [draws(t + i)
                                                     for i in range(n)])
-                ids, loss, ent = (torch.stack(o).cpu() for o in zip(*outs))
-            self.params, self.extras, self.state = carry[:3]
+                outs = [torch.stack(o).cpu() for o in zip(*outs)]
+            self._store_carry(carry)
             self.history["segment_wall_s"].append(
                 time.perf_counter() - t_start)
             self.history["segment_rounds"].append(n)
-            for i in range(n):
-                self.history["round"].append(t + i)
-                self.history["train_loss"].append(float(loss[i]))
-                self.history["selected"].append(ids[i].tolist())
-                self.history["bias_entropy"].append(
-                    ent[i].tolist() if ent.shape[-1] else None)
+            self._record(t, outs)
             t += n
             if self.test is not None:
                 self._eval_round(t - 1, progress)
         return self._finish()
+
+    #: the profiler range of a segment (``fed/scan_segment[n]``)
+    _span = "fed/scan_segment"
+
+    def _initial_carry(self) -> tuple:
+        """The round step's carry from the server's current params,
+        extras and selector state, at round 0."""
+        return (self.params, self.extras, self.state,
+                torch.zeros((), dtype=torch.int32, device=self.device))
+
+    def _store_carry(self, carry) -> None:
+        self.params, self.extras, self.state = carry[:3]
+
+    def _record(self, t: int, outs: list) -> None:
+        """A segment's per-round outputs (each stacked over its rounds,
+        on the CPU) into the history, from round ``t``."""
+        ids, loss, ent = outs
+        for i in range(ids.shape[0]):
+            self.history["round"].append(t + i)
+            self.history["train_loss"].append(float(loss[i]))
+            self.history["selected"].append(ids[i].tolist())
+            self.history["bias_entropy"].append(
+                ent[i].tolist() if ent.shape[-1] else None)
 
     def _segment(self, carry, draws: list):
         """The rounds of one segment from ``carry`` with their

@@ -218,22 +218,20 @@ def test_hics_functional_20_rounds_identical(incremental):
         assert torch.equal(tstate.dist_cache, tstate.dist_cache.T)
 
 
-SCENARIOS_ITEM = "queue 1: scenarios, the seed sweep and the async server"
-
-
-def _raises_unported(name, bad, fine):
-    """Each of ``bad`` raises naming the ROADMAP.md item that ports it
-    (it used to vanish into ``**_kw``, and the run then differed from
-    the reference's); each of ``fine``, the defaults, the ported values
-    and names no selector reads, builds and runs four select/update
-    rounds (three sweep rounds, then a clustered one for HiCS)."""
+def _builds_and_runs(name, fine):
+    """Each of ``fine``, the defaults, the ported values (``stale_slots``
+    above 1 since the scenarios slice) and names no selector reads,
+    builds and runs four select/update rounds (three sweep rounds, then
+    a clustered one for HiCS); an incremental selector's ring of staled
+    ids holds ``stale_slots``·K ids."""
     kw = dict(num_clients=8, num_select=3, total_rounds=4, device="cpu")
-    for opts in bad:
-        with pytest.raises(NotImplementedError, match=SCENARIOS_ITEM):
-            make_functional(name, **kw, **opts)
     for opts in fine:
-        _four_rounds(make_functional(name, **kw, num_classes=10,
-                                     feat_dim=10, **opts))
+        fn = make_functional(name, **kw, num_classes=10, feat_dim=10,
+                             **opts)
+        ring = fn.init().stale_ids.shape[0]
+        if ring:
+            assert ring == 3 * max(1, opts.get("stale_slots", 1)), opts
+        _four_rounds(fn)
 
 
 def _four_rounds(fn):
@@ -251,9 +249,11 @@ def _four_rounds(fn):
 
 
 def test_hics_unported_options_raise():
-    _raises_unported(
-        "hics", [{"stale_slots": 2}, {"stale_slots": 2, "incremental": False}],
-        [{"linkage": "average"}, {"linkage": "single", "num_clusters": 8},
+    _builds_and_runs(
+        "hics",
+        [{"stale_slots": 2}, {"stale_slots": 2, "incremental": False},
+         {"stale_slots": 3, "linkage": "average", "num_clusters": 2},
+         {"linkage": "average"}, {"linkage": "single", "num_clusters": 8},
          {"linkage": "complete", "num_clusters": 1, "incremental": False},
          {"num_clusters": 2},
          {"linkage": "ward", "num_clusters": 3, "stale_slots": 1,
@@ -262,16 +262,17 @@ def test_hics_unported_options_raise():
 
 
 def test_cs_unported_options_raise():
-    _raises_unported("cs", [{"stale_slots": 2}],
-                     [{"stale_slots": 1, "gram_in_bf16": True,
-                       "linkage": "average"}])
+    _builds_and_runs("cs", [{"stale_slots": 2},
+                            {"stale_slots": 2, "incremental": False},
+                            {"stale_slots": 1, "gram_in_bf16": True,
+                             "linkage": "average"}])
 
 
 def test_divfl_unported_options_raise():
-    _raises_unported("divfl", [{"stale_slots": 3},
-                               {"stale_slots": 2, "refresh": "selected"}],
-                     [{"stale_slots": 1, "refresh": "selected"},
-                      {"no_such_option": 5}])
+    _builds_and_runs("divfl", [{"stale_slots": 3},
+                               {"stale_slots": 2, "refresh": "selected"},
+                               {"stale_slots": 1, "refresh": "selected"},
+                               {"no_such_option": 5}])
 
 
 def test_unported_local_and_driver_options_raise():

@@ -4,9 +4,9 @@
   import neither JAX nor anything of the JAX package ``repro``.
 * The kernel modules import without ``triton`` and without ``nvcc``.
 * Entry points default to the card (the ops, the selector factories,
-  the experiment builder, model init and the serve entry point): called
-  with no device on a machine without CUDA they raise instead of
-  running on the CPU.
+  the experiment builder, model init, the serve entry point, the sweep
+  and the async server): called with no device on a machine without
+  CUDA they raise instead of running on the CPU.
 """
 import ast
 import os
@@ -167,6 +167,45 @@ def test_serve_entry_points_raise_without_cuda(no_cuda):
     api = get_model("qwen2.5-3b")
     calls = [lambda: api.init(0), lambda: api.init_cache(1, 8),
              lambda: serve.main(["--full"]), lambda: serve.main([])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_scenario_entry_points_raise_without_cuda(no_cuda):
+    """The sweep's drivers, its dataset, the servers built from a
+    partition and the async server default to the card."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.fed import (AsyncConfig, AsyncFederatedServer,
+                                 FedConfig, FederatedServer)
+    from repro_torch.models import make_classifier
+    from repro_torch.scenarios import (SCENARIOS, SweepSpec,
+                                       build_async_pair, build_pair,
+                                       make_dataset, materialize,
+                                       run_async_sweep, run_host_reference,
+                                       run_sweep)
+    spec = SweepSpec(scenarios=("mixed_80_20",), selectors=("hics",),
+                     seeds=(0,), num_clients=4, num_select=2, rounds=1,
+                     samples_train=40, samples_test=10)
+    scn = SCENARIOS["mixed_80_20"]
+    init, apply, _ = make_classifier(get_config("paper-mlp"), 4)
+    x, y = np.zeros((40, 4), np.float32), np.zeros(40, np.int32)
+    part = materialize(scn, 0, {"y": torch.tensor(y)}, 10, 4, 10)
+    cx, cm = np.zeros((4, 10, 4), np.float32), np.ones((4, 10), np.float32)
+    calls = [
+        lambda: run_sweep(spec), lambda: run_async_sweep(spec),
+        lambda: build_pair(spec, "mixed_80_20", "hics"),
+        lambda: build_async_pair(spec, "mixed_80_20", "hics"),
+        lambda: run_host_reference(spec, "mixed_80_20", "hics", 0),
+        lambda: make_dataset(scn, 40, 10, 10),
+        lambda: FederatedServer.from_partition(
+            init, apply, FedConfig(num_clients=4, num_select=2), x, y,
+            part),
+        lambda: AsyncFederatedServer(
+            init, apply, AsyncConfig(num_clients=4, num_select=2), cx,
+            np.zeros((4, 10), np.int32), cm),
+    ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
