@@ -71,7 +71,17 @@ latency (bit-equal to the sync scanned run), under stragglers and
 flash crowds (arrivals accounted, versions counted) and at M = 2K
 (``stale_slots`` = 2: the strip over 2K rows with repeated ids, the
 cache against from-scratch builds), and ``run_async_sweep`` over three
-traffic shapes.
+traffic shapes.  Then phase ``telemetry`` (alone: ``python3
+chip_smoke.py telemetry``) at the slice's spec: the graph driver, the
+host loop, the async server at identity latency and ``run_sweep`` over
+two scenarios × hics × four seeds, each with telemetry off and on
+(bit-equal, one capture each), the fields against the host's
+recomputation from each run's history, ms a replay with and without
+telemetry in turns, each sweep seed's fields bit-equal to its scanned
+run's, one field set from all four drivers, the JSONL round trip, the
+env stamp, and the ``kernels/*`` profiler ranges of a host-loop round
+with ``REPRO_TRACE=1`` (a subprocess) and without.  Phase ``lm_train``
+also writes ``--telemetry`` and reads it back.
 Prints one JSON line per phase, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": ...}``.  Exits non-zero, with no result
 line, without a CUDA device or when any check fails.
@@ -97,8 +107,10 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -138,9 +150,14 @@ from repro_torch.fed import (AsyncConfig, AsyncFederatedServer,  # noqa: E402
 from repro_torch.scenarios import (SweepSpec,  # noqa: E402
                                    availability_mask, build_pair,
                                    make_dataset, run_async_sweep,
-                                   run_host_reference)
+                                   run_host_reference, run_sweep)
 from repro_torch.scenarios.registry import (  # noqa: E402
     partition_generator)
+from repro_torch.scenarios import sweep as sweep_mod  # noqa: E402
+from repro_torch.telemetry import (GROUPS, client_true_entropy,  # noqa: E402
+                                   env_stamp, read_jsonl,
+                                   telemetry_from_records, write_run,
+                                   write_sweep)
 
 LAM = 10.0
 T_SLICE = 0.63
@@ -1376,8 +1393,7 @@ def round_step_syncs(server):
     gen_state = server.gen.get_state()
     rd = server.draw_round(0)
     server.gen.set_state(gen_state)
-    carry = (server.params, server.extras, server.state,
-             torch.zeros((), dtype=torch.int32, device=server.device))
+    carry = server._initial_carry()
     step = server._make_round_step()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -2162,9 +2178,11 @@ def lm_train_phase(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    tel_dir = tempfile.TemporaryDirectory()
+    tel_path = Path(tel_dir.name) / "lm_train.jsonl"
     kbuild.reset_launches()
     t0 = time.perf_counter()
-    res = train.main(LM_ARGV)
+    res = train.main(LM_ARGV + ["--telemetry", str(tel_path)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(kbuild.launches)
@@ -2207,6 +2225,8 @@ def lm_train_phase(dev) -> dict:
            "selected": hist["selected"], "loss": hist["loss"],
            "entropy_spread": float(ent.max() - ent.min()),
            "entropy_last": ent.tolist(), "launches": launches}
+    out["telemetry"] = lm_telemetry(tel_path, hist)
+    tel_dir.cleanup()
     out["cpu_replay"] = lm_replay(rec, sel)
     out["cache_vs_plain"] = lm_cache_check(sel, dev)
     out["step_profile"] = lm_step_profile(res, dev)
@@ -2216,6 +2236,24 @@ def lm_train_phase(dev) -> dict:
     out["two_layer_cut"] = lm_cut(tokens, dev)
     emit(out)
     return launches
+
+
+def lm_telemetry(path, hist) -> dict:
+    """The run's ``--telemetry`` JSONL read back: a header with the card
+    in its env stamp, a record a round, the history's loss."""
+    recs = read_jsonl(path)
+    back = telemetry_from_records(recs[1:])
+    fields = ["fairness/eff_participation", "fairness/participation",
+              "selection/ent_mean", "training/loss"]
+    ok = (recs[0]["kind"] == "header" and recs[0]["fields"] == fields
+          and len(recs) == 1 + LM_ROUNDS
+          and recs[0]["env"]["backend"] == "cuda"
+          and np.array_equal(back["training/loss"],
+                             np.float32(hist["loss"]).astype(np.float64)))
+    require(f"lm_train: telemetry JSONL {recs[0]}", ok)
+    return {"fields": recs[0]["fields"], "records": len(recs) - 1,
+            "meta": recs[0]["meta"], "ok": ok,
+            "participation": back["fairness/participation"].tolist()}
 
 
 def lm_replay(rec: list, card_sel) -> dict:
@@ -2785,6 +2823,318 @@ def scenarios_phase(dev) -> tuple:
     return launches, by_epi
 
 
+#: the sync drivers' metric groups (the async server adds ``async``)
+SYNC_GROUPS = ("selection", "training", "fairness")
+#: the sweep cells of phase telemetry
+TEL_SCENARIOS = ("mixed_80_20", "dir_severe")
+
+
+def _np_spearman(a, b) -> float:
+    """Spearman's rank correlation, ranks by a stable sort."""
+    def ranks(v):
+        r = np.empty(v.shape[0])
+        r[np.argsort(v, kind="stable")] = np.arange(v.shape[0])
+        return r - (v.shape[0] - 1) / 2
+    ra, rb = ranks(a), ranks(b)
+    denom = np.sqrt((ra * ra).sum() * (rb * rb).sum())
+    return float((ra * rb).sum() / denom) if denom > 0 else 0.0
+
+
+def telemetry_vs_history(tag, srv, hist) -> dict:
+    """A run's telemetry against the host's recomputation from its
+    history: ``fairness/*`` from the participants (counts exact, rates
+    within 1e-6), ``selection/ent_*`` from its Ĥ (``bias_entropy``) and
+    true entropies within 5e-5, those true entropies within 5e-6 of a
+    CPU ``client_true_entropy``."""
+    tel, n = srv.telemetry, srv.cfg.num_clients
+    sel = np.asarray(hist["selected"])
+    counts = np.cumsum([np.bincount(r, minlength=n) for r in sel], axis=0)
+    p = counts / counts.sum(axis=1, keepdims=True)
+    hp = -np.where(counts > 0, p * np.log(np.clip(p, 1e-12, None)),
+                   0.0).sum(axis=1)
+    fair = {"participation": (counts > 0).mean(axis=1),
+            "eff_participation": np.exp(hp) / n}
+    out = {"sel_counts_equal": bool(np.array_equal(
+        tel["fairness/sel_counts"], counts))}
+    out.update({f"{k}_max_abs_err": float(np.abs(
+        tel[f"fairness/{k}"] - v).max()) for k, v in fair.items()})
+    require(f"{tag}: fairness counts differ from the participants'",
+            out["sel_counts_equal"])
+    rate_err = max(out["participation_max_abs_err"],
+                   out["eff_participation_max_abs_err"])
+    require(f"{tag}: fairness rates off the participants' by {rate_err}",
+            rate_err <= 1e-6)
+    te_card = srv._true_ent.cpu()
+    y, mask = srv.y.cpu(), srv.mask.cpu()
+    te_cpu = client_true_entropy(y, mask, int(y.max()) + 1)
+    out["true_entropy_vs_cpu"] = check(f"{tag}: true entropy vs CPU",
+                                       te_card, te_cpu, 5e-6)
+    ent = np.asarray(hist["bias_entropy"], np.float64)
+    te = te_card.double().numpy()
+    want = {
+        "ent_mean": ent.mean(axis=1), "ent_std": ent.std(axis=1),
+        "ent_selected_mean": np.asarray([ent[t, sel[t]].mean()
+                                         for t in range(len(sel))]),
+        "ent_mae": np.abs(ent - te).mean(axis=1),
+        "ent_rank_corr": np.asarray([_np_spearman(e, te) for e in ent])}
+    errs = {k: float(np.abs(tel[f"selection/{k}"] - v).max())
+            for k, v in want.items()}
+    require(f"{tag}: selection fields off the history's Ĥ {errs}",
+            max(errs.values()) <= 5e-5)
+    out["selection_max_abs_err"] = errs
+    return out
+
+
+def _same_runs(tag, a, b) -> dict:
+    """Two runs' participants, train loss, final params and selector
+    state, bit for bit."""
+    (sa, ha), (sb, hb) = a, b
+    same = {"selected": ha["selected"] == hb["selected"],
+            "train_loss": ha["train_loss"] == hb["train_loss"],
+            "params": all(torch.equal(x, y) for x, y in zip(
+                _leaves(sa.params), _leaves(sb.params))),
+            "state": all(torch.equal(x, y) for x, y in zip(sa.state,
+                                                           sb.state))}
+    require(f"{tag}: telemetry on differs from off {same}",
+            all(same.values()))
+    return same
+
+
+def telemetry_sync(jit: bool, dev) -> tuple:
+    """The slice's spec through one sync driver with telemetry off, then
+    on (the sync groups, counts set to 0 just before it): bit-equal,
+    one capture each in the graph driver, the fields against the
+    history, and the cost: ms a replay with and without telemetry, in
+    turns (graph), or the host loop's ms a round."""
+    tag = f"telemetry {'graph' if jit else 'host'}"
+    runs = []
+    for groups in ((), SYNC_GROUPS):
+        srv, _ = build(dataclasses.replace(SPEC, jit_rounds=jit,
+                                           telemetry=groups), device=dev)
+        hist, launches, _ = _launches_since_reset(srv.run)
+        runs.append((srv, hist))
+    (off, h_off), (on, h_on) = runs
+    rec = {"bit_equal": _same_runs(tag, *runs), "launches": launches,
+           "rounds_per_s": [h_off["rounds_per_s"], h_on["rounds_per_s"]]}
+    rec.update(telemetry_vs_history(tag, on, h_on))
+    if jit:
+        rec["captures"] = [off.captures, on.captures]
+        require(f"{tag}: captures {rec['captures']}",
+                rec["captures"] == [1, 1])
+        turns = [(name, replay_ms(g._graph)) for name, g in (
+            ("off", off), ("on", on), ("on", on), ("off", off))]
+        rec["replay_ms_in_turns"] = turns
+        rec["replay_ms_off"] = [t for name, t in turns if name == "off"]
+        rec["replay_ms_on"] = [t for name, t in turns if name == "on"]
+    else:
+        rec["ms_per_round_off"] = 1e3 * float(np.mean(h_off["wall_s"][1:]))
+        rec["ms_per_round_on"] = 1e3 * float(np.mean(h_on["wall_s"][1:]))
+    return rec, on, launches
+
+
+def telemetry_async(graph_srv, dev) -> tuple:
+    """The async server at identity latency (B = M = K) on the slice's
+    client arrays, telemetry off then on (every group): bit-equal, one
+    capture each, the ``async/*`` fields the history's."""
+    tag = "telemetry async"
+    arrays = [a.cpu().numpy() for a in (graph_srv.x, graph_srv.y,
+                                        graph_srv.mask)]
+    test = {k: v.cpu().numpy() for k, v in graph_srv.test.items()}
+    init, apply, _ = make_classifier(get_config(SPEC.arch),
+                                     input_dim=SPEC.data.dim)
+    runs = []
+    for groups in ((), GROUPS):
+        acfg = AsyncConfig(
+            num_clients=SPEC.num_clients, num_select=SPEC.num_select,
+            ticks=ROUNDS, selector="hics", selector_kw=SELECTOR_KW,
+            local=SPEC.local, eval_every=SPEC.eval_every, seed=SPEC.seed,
+            telemetry=groups)
+        srv = AsyncFederatedServer(init, apply, acfg, *arrays, test=test,
+                                   device=dev)
+        runs.append((srv, srv.run()))
+    (off, _), (on, hist) = runs
+    rec = {"bit_equal": _same_runs(tag, *runs),
+           "captures": [off.captures, on.captures]}
+    require(f"{tag}: captures {rec['captures']}", rec["captures"] == [1, 1])
+    tel = on.telemetry
+    fields = {}
+    for field, key in (("fired", "fired"), ("fill", "buffer_fill"),
+                       ("accepted", "accepted"), ("dropped", "dropped"),
+                       ("version", "version")):
+        fields[field] = bool(np.array_equal(
+            tel[f"async/{field}"], np.asarray(hist[key], np.float32)))
+    fields["version_lag_zero"] = bool((tel["async/version_lag"] == 0).all())
+    fields["agg_ages_zero"] = bool((tel["async/agg_ages"] == 0).all())
+    require(f"{tag}: async fields differ from the history {fields}",
+            all(fields.values()))
+    rec["async_fields_equal"] = fields
+    rec.update(telemetry_vs_history(tag, on, hist))
+    # identity latency is the sync scanned run: its telemetry too
+    rec["sync_fields_bit_equal_to_graph"] = {
+        k: bool(np.array_equal(v, tel[k]))
+        for k, v in graph_srv.telemetry.items() if not k.startswith("async/")}
+    rec["replay_ms"] = [replay_ms(off._graph), replay_ms(on._graph)]
+    return rec, on
+
+
+def telemetry_sweep(dev) -> tuple:
+    """``run_sweep`` over :data:`TEL_SCENARIOS` × hics × 4 seeds with the
+    sync groups: one capture a cell, fields (S, T, ...), each seed's
+    fields bit-equal to its server's own scanned run."""
+    spec = dataclasses.replace(SWEEP, scenarios=TEL_SCENARIOS,
+                               selectors=("hics",), telemetry=SYNC_GROUPS)
+    made, graph_cls = [], sweep_mod.RoundGraph
+
+    class CountedGraph(graph_cls):
+        """The sweep's graph, counting its captures."""
+        def __init__(self, *args, **kwargs):
+            made.append(1)
+            super().__init__(*args, **kwargs)
+
+    sweep_mod.RoundGraph = CountedGraph
+    try:
+        res = run_sweep(spec, device=dev)
+    finally:
+        sweep_mod.RoundGraph = graph_cls
+    rec = {"captures": len(made), "cells": {}}
+    require(f"telemetry sweep: {len(made)} captures for "
+            f"{len(TEL_SCENARIOS)} cells", len(made) == len(TEL_SCENARIOS))
+    seeds, rounds, n = len(spec.seeds), spec.rounds, spec.num_clients
+    for scenario in TEL_SCENARIOS:
+        tag = f"telemetry sweep {scenario}"
+        cell = res["grid"][f"{scenario}/hics"]
+        tel = cell["telemetry"]
+        shapes_ok = (tel["fairness/sel_counts"].shape == (seeds, rounds, n)
+                     and tel["training/loss"].shape == (seeds, rounds))
+        require(f"{tag}: fields not (S, T, ...)", shapes_ok)
+        pair = build_pair(spec, scenario, "hics", device=dev)
+        same = []
+        for i, srv in enumerate(pair.servers):
+            srv.test = None
+            srv.run()
+            same.append(all(np.array_equal(v, tel[k][i])
+                            for k, v in srv.telemetry.items()))
+        require(f"{tag}: a seed's telemetry differs from its scanned run "
+                f"{same}", all(same))
+        rec["cells"][scenario] = {"shapes_ok": shapes_ok,
+                                  "bit_equal_to_scanned": same,
+                                  "wall_s": cell["wall_s"]}
+        del pair
+    return rec, res["grid"][f"{TEL_SCENARIOS[0]}/hics"]["telemetry"]
+
+
+TRACE_CODE = """
+import dataclasses, json, sys, torch
+sys.path.insert(0, {root!r})
+import chip_smoke
+from repro_torch.fed import build
+srv, _ = build(dataclasses.replace(chip_smoke.SPEC, rounds=2),
+               device="cuda")
+srv.step(0, srv.draw_round(0))
+torch.cuda.synchronize()
+with torch.profiler.profile() as prof:
+    srv.step(1, srv.draw_round(1))
+    torch.cuda.synchronize()
+print(json.dumps(sorted({{e.key for e in prof.key_averages()
+                         if e.key.startswith("kernels/")}})))
+"""
+
+
+def trace_ranges(dev) -> dict:
+    """One host-loop round (round 1: its select refreshes the cache)
+    profiled in a subprocess with ``REPRO_TRACE=1`` and here, without
+    the switch: the ``kernels/*`` ranges each finds."""
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, REPRO_TRACE="1")
+    proc = subprocess.run([sys.executable, "-c", TRACE_CODE.format(
+        root=root)], env=env, capture_output=True, text=True, timeout=300,
+        cwd=root)
+    require(f"telemetry trace: the subprocess failed: {proc.stderr[-500:]}",
+            proc.returncode == 0)
+    with_switch = (json.loads(proc.stdout.strip().splitlines()[-1])
+                   if proc.returncode == 0 else [])
+    srv, _ = build(dataclasses.replace(SPEC, rounds=2), device=dev)
+    srv.step(0, srv.draw_round(0))
+    torch.cuda.synchronize()
+    with torch.profiler.profile() as prof:
+        srv.step(1, srv.draw_round(1))
+        torch.cuda.synchronize()
+    without = sorted({e.key for e in prof.key_averages()
+                      if e.key.startswith("kernels/")})
+    found = {"kernels/fused_row_stats",
+             "kernels/hics_selection_step_cached"} & set(with_switch)
+    require(f"telemetry trace: no kernel range with REPRO_TRACE=1 "
+            f"({with_switch})", bool(found))
+    require(f"telemetry trace: kernel ranges without the switch {without}",
+            not without)
+    return {"with_switch": with_switch, "without_switch": without}
+
+
+def export_round_trip(graph_srv, sweep_tel) -> dict:
+    """``write_run`` and ``write_sweep`` to JSONL and back."""
+    live = {k: v for k, v in graph_srv.telemetry.items() if 0 not in v.shape}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_run(Path(tmp) / "run.jsonl", graph_srv.telemetry,
+                  meta={"driver": "chip_smoke"})
+        recs = read_jsonl(Path(tmp) / "run.jsonl")
+        back = telemetry_from_records(recs[1:])
+        run_ok = (sorted(back) == sorted(live) == recs[0]["fields"] and all(
+            np.array_equal(back[k].astype(v.dtype), v)
+            for k, v in live.items()))
+        write_sweep(Path(tmp) / "sweep.jsonl", {"cell": sweep_tel})
+        recs = read_jsonl(Path(tmp) / "sweep.jsonl")
+        seeds = np.asarray(sweep_tel["training/loss"]).shape[0]
+        sweep_ok = all(np.array_equal(telemetry_from_records(
+            [r for r in recs[1:] if r["seed"] == s])["training/loss"]
+            .astype(np.float32), sweep_tel["training/loss"][s])
+            for s in range(seeds))
+    require(f"telemetry export: round trip run {run_ok} sweep {sweep_ok}",
+            run_ok and sweep_ok)
+    return {"write_run": run_ok, "write_sweep": sweep_ok,
+            "header_env": recs[0]["env"]}
+
+
+def telemetry_phase(dev) -> dict:
+    """Telemetry at the slice's spec (paper-cnn, N 50, K 5, 14 rounds,
+    HiCS incremental) in all four drivers: each run with telemetry on
+    bit-equal to its run with it off and captured once; the fields
+    against the host's recomputation; the same field set from every
+    driver; the JSONL export; the env stamp; the ``REPRO_TRACE`` ranges.
+    Returns the launches of the graph driver's run with telemetry on."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"phase": "telemetry", "card": CARD}
+    out["graph"], graph_srv, launches = telemetry_sync(True, dev)
+    out["host"], host_srv, _ = telemetry_sync(False, dev)
+    out["async"], async_srv = telemetry_async(graph_srv, dev)
+    out["sweep"], sweep_tel = telemetry_sweep(dev)
+    sets = {"graph": sorted(graph_srv.telemetry),
+            "host": sorted(host_srv.telemetry),
+            "async": sorted(async_srv.telemetry),
+            "sweep": sorted(sweep_tel)}
+    same_set = all(v == sets["graph"] for v in sets.values())
+    require(f"telemetry: field sets differ across drivers", same_set)
+    out["same_field_set"] = same_set
+    out["fields"] = sets["graph"]
+    out["export"] = export_round_trip(graph_srv, sweep_tel)
+    stamp = env_stamp()
+    require(f"telemetry: env stamp {stamp}",
+            stamp["backend"] == "cuda"
+            and stamp["device_kind"] == torch.cuda.get_device_name(0))
+    out["env_stamp"] = stamp
+    out["trace"] = trace_ranges(dev)
+    for name in ("fused_stats", "gram_update"):
+        require(f"telemetry: {name} was not launched", launches[name] > 0)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    del graph_srv, host_srv, async_srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _paths(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -2804,7 +3154,7 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     alone = ("graph_rounds", "lm_train", "local_algos", "finetune_example",
-             "scenarios")
+             "scenarios", "telemetry")
     if argv and (len(argv) > 1 or argv[0] not in alone):
         print(f"usage: chip_smoke.py [{' | '.join(alone)}]", file=sys.stderr)
         return 2
@@ -2832,7 +3182,8 @@ def main(argv) -> int:
          "lm_train": lambda: lm_train_phase(dev),
          "local_algos": lambda: local_algos_phase(dev),
          "finetune_example": lambda: finetune_example_phase(dev),
-         "scenarios": lambda: scenarios_phase(dev)}[argv[0]]()
+         "scenarios": lambda: scenarios_phase(dev),
+         "telemetry": lambda: telemetry_phase(dev)}[argv[0]]()
         for f in failures:
             print("FAILED:", f, file=sys.stderr)
         return 1 if failures else 0
@@ -2858,6 +3209,7 @@ def main(argv) -> int:
     lm_launches = lm_train_phase(dev)
     ft_launches = finetune_example_phase(dev)
     scn_launches, scn_epilogues = scenarios_phase(dev)
+    tel_launches = telemetry_phase(dev)
 
     # the strip kernel's three epilogues, each counted on its own path:
     # arccos in the HiCS slice and its bf16 run, cosine in the cs run,
@@ -2944,6 +3296,8 @@ def main(argv) -> int:
         kern["launches_finetune"] = ft_launches[kern["name"]]
         # phase scenarios: the sweeps and the async runs
         kern["launches_scenarios"] = scn_launches[kern["name"]]
+        # phase telemetry: the graph driver's run with telemetry on
+        kern["launches_telemetry"] = tel_launches[kern["name"]]
     strip["launches_scenarios_by_epilogue"] = scn_epilogues
     # the arccos strip at the LM fine-tune's K2×N8×C151,936
     strip["lm_path"] = {key: lm_strip[key] for key in keys + (

@@ -19,13 +19,19 @@ from repro_torch.core.sampling import (anneal, anneal_device, cluster_probs,
                                        sampling_probabilities,
                                        weighted_sample_device)
 from repro_torch.core.selectors import (FUNCTIONAL, SELECTORS,
-                                        ClientSelector, Observations,
-                                        SelectNoise, SelectorState,
-                                        hics_functional, make_functional,
-                                        make_selector)
+                                        ClientSelector,
+                                        ClusteredSamplingSelector,
+                                        DivFLSelector, FedCorSelector,
+                                        FunctionalSelector, HiCSFLSelector,
+                                        Observations, PowerOfChoiceSelector,
+                                        RandomSelector, SelectNoise,
+                                        SelectorState, hics_functional,
+                                        make_functional, make_selector)
 
-__all__ = ["ClientSelector", "FUNCTIONAL", "Observations", "SELECTORS",
-           "SelectNoise", "SelectorState",
+__all__ = ["ClientSelector", "ClusteredSamplingSelector", "DivFLSelector",
+           "FUNCTIONAL", "FedCorSelector", "FunctionalSelector",
+           "HiCSFLSelector", "Observations", "PowerOfChoiceSelector",
+           "RandomSelector", "SELECTORS", "SelectNoise", "SelectorState",
            "agglomerate", "agglomerate_device", "anneal", "anneal_device",
            "cluster_means", "cluster_means_device", "cluster_probs",
            "coverage_sweep_device", "delta_b_from_head_delta",

@@ -107,6 +107,10 @@ class FunctionalSelector(NamedTuple):
     update: Callable[..., SelectorState]  # (state, t, ids, obs) -> state
     #: (state) -> (N,) Ĥ
     entropies: Optional[Callable[[SelectorState], torch.Tensor]] = None
+    #: (state) -> {"cluster_sizes": (M,) int32, "cluster_ent_spread":
+    #: ()}: clustering-health observables for the telemetry
+    #: ``selection`` group; reads nothing on the host, like ``entropies``
+    diagnostics: Optional[Callable[[SelectorState], dict]] = None
     #: observed full-update width P -> stored feature width F
     feat_width: Optional[Callable[[int], int]] = None
     #: clusters M of the two-stage sampler's noise; None: K
@@ -154,9 +158,8 @@ def init_state(num_clients: int, weights=None, num_classes: int = 0,
     )
 
 
-#: ROADMAP.md's queue 1 items, by title, that port the options the
+#: ROADMAP.md's queue 1 item, by title, that ports the options the
 #: port still refuses
-TELEMETRY = "queue 1: telemetry"
 LM_SUBSTRATE = "queue 1: the rest of the LM substrate"
 
 

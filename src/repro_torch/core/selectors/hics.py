@@ -27,7 +27,8 @@ through ``functional.cond``: one scalar read each per round in the
 host loop, none in the scanned driver's
 round step, where both branches run (every linkage on the sweep
 rounds' zero cache is finite and discarded).  ``update`` reads
-``obs.bias_updates``.
+``obs.bias_updates``.  ``diagnostics`` (incremental only) re-clusters
+the cache as it stands for the telemetry ``selection`` group.
 """
 from __future__ import annotations
 
@@ -125,9 +126,27 @@ def hics_functional(num_clients: int, num_select: int, total_rounds: int,
         return estimate_entropy(state.delta_b, temperature,
                                 normalize=normalize)
 
+    def diagnostics(state: SelectorState) -> dict:
+        # clustering health for the telemetry ``selection`` group:
+        # re-cluster the cached Eq. 9 distance as it stands (rows that
+        # ``update`` staled wait for the next select's refresh; unseen
+        # clients' rows are zero), the cluster sizes and the
+        # within-cluster RMS spread of Ĥ
+        ent = state.row_stats[:, 1]
+        labels = agglomerate_device(state.dist_cache, m, linkage=linkage,
+                                    precomputed=True).long()
+        means = cluster_means_device(ent, labels, m)
+        sizes = torch.zeros(m, dtype=torch.int32, device=ent.device)
+        sizes = sizes.index_add(0, labels, torch.ones(
+            labels.shape, dtype=torch.int32, device=ent.device))
+        dev2 = (ent - means.index_select(0, labels)) ** 2
+        return {"cluster_sizes": sizes,
+                "cluster_ent_spread": torch.sqrt(dev2.mean())}
+
     return FunctionalSelector("hics", frozenset({"bias_sel"}), init,
                               select, update, entropies=entropies,
-                              num_clusters=m)
+                              diagnostics=diagnostics if incremental
+                              else None, num_clusters=m)
 
 
 class HiCSFLSelector(ClientSelector):

@@ -7,7 +7,8 @@ from repro_torch.fed.async_server import (AsyncConfig, AsyncFederatedServer,
 from repro_torch.fed.buffer import (RingBuffer, buffer_init, buffer_pop,
                                     buffer_push)
 from repro_torch.fed.latency import LatencySpec, delay_tables, max_delay
-from repro_torch.fed.client import (LocalSpec, init_extra, make_eval_fn,
+from repro_torch.fed.client import (ALGOS, OPTIMIZERS, LocalSpec,
+                                    init_extra, make_eval_fn,
                                     make_local_update, make_loss_poll)
 from repro_torch.fed.partition import (dirichlet_partition,
                                        multi_alpha_partition)
@@ -18,12 +19,12 @@ from repro_torch.fed.server import (FedConfig, FederatedServer, RoundDraws,
 from repro_torch.fed.simulation import (PAPER_SETTINGS, ExperimentSpec, build,
                                         run_experiment)
 
-__all__ = ["AsyncConfig", "AsyncFederatedServer", "ExperimentSpec",
-           "FedConfig", "FederatedServer", "LatencySpec", "LocalSpec",
-           "PAPER_SETTINGS", "RingBuffer", "RoundDraws", "aggregate_params",
-           "buffer_init", "buffer_pop", "buffer_push", "build",
-           "delay_tables", "dirichlet_partition", "flatten_params",
-           "full_sel_updates", "init_extra", "make_eval_fn",
-           "make_grad_all", "make_local_update", "make_loss_poll",
-           "max_delay", "multi_alpha_partition", "rounds_to_accuracy",
-           "run_experiment", "ticks_to_loss"]
+__all__ = ["ALGOS", "OPTIMIZERS", "AsyncConfig", "AsyncFederatedServer",
+           "ExperimentSpec", "FedConfig", "FederatedServer", "LatencySpec",
+           "LocalSpec", "PAPER_SETTINGS", "RingBuffer", "RoundDraws",
+           "aggregate_params", "buffer_init", "buffer_pop", "buffer_push",
+           "build", "delay_tables", "dirichlet_partition", "flatten_params",
+           "full_sel_updates", "init_extra", "make_eval_fn", "make_grad_all",
+           "make_local_update", "make_loss_poll", "max_delay",
+           "multi_alpha_partition", "rounds_to_accuracy", "run_experiment",
+           "ticks_to_loss"]

@@ -50,9 +50,7 @@ import torch
 from repro_torch.core.hetero import (head_bias_updates_stacked,
                                      head_num_classes)
 from repro_torch.core.selectors import Observations
-from repro_torch.core.selectors.functional import (TELEMETRY,
-                                                   both_branches, cond,
-                                                   not_ported,
+from repro_torch.core.selectors.functional import (both_branches, cond,
                                                    state_entropies)
 from repro_torch.fed.buffer import buffer_init, buffer_pop, buffer_push
 from repro_torch.fed.client import LocalSpec
@@ -60,6 +58,7 @@ from repro_torch.fed.latency import LatencySpec, delay_tables, max_delay
 from repro_torch.fed.server import (FedConfig, FederatedServer, RoundDraws,
                                     aggregate_params, full_sel_updates)
 from repro_torch.optim import tree_map
+from repro_torch.telemetry import MetricsSpec
 
 #: the observations the async tick can make on the device
 ASYNC_SCANNABLE = frozenset({"bias_sel", "loss_all", "full_sel"})
@@ -83,12 +82,12 @@ class AsyncConfig:
     seed: int = 0
     lr_decay_every: int = 10
     lr_decay: float = 0.5
-    #: the reference's telemetry groups: only () is ported
+    #: telemetry metric groups to record (``repro_torch.telemetry.
+    #: GROUPS``, ``async`` included); () is off
     telemetry: tuple = ()
 
     def __post_init__(self):
-        if self.telemetry:
-            raise not_ported("telemetry", self.telemetry, TELEMETRY)
+        MetricsSpec(tuple(self.telemetry))     # an unknown group raises
 
     def sizes(self):
         """Resolved (K, B, M) with the 0 → K defaults applied."""
@@ -139,10 +138,11 @@ def pool_init(window: int, k: int, payload_proto: Any,
 def make_tick_step(cfg: AsyncConfig, server: FederatedServer,
                    base_delay: torch.Tensor, window: int):
     """The async tick for ``server`` (its selector, select, local
-    update and data), ``((params, extras, state, t, pool, buffer,
-    version), draws) -> (carry after the tick, (ids, mean train loss,
-    Ĥ or (0,), fired, fill, accepted, dropped, version))``, and
-    ``init_runtime(params) -> (pool, buffer)``."""
+    update, data and metrics step), ``((params, extras, state, t,
+    telemetry carry, pool, buffer, version), draws) -> (carry after the
+    tick, (ids, mean train loss, Ĥ or (0,), fired, fill, accepted,
+    dropped, version, telemetry dict))``, and ``init_runtime(params)
+    -> (pool, buffer)``."""
     k, b, m = cfg.sizes()
     w = int(window)
     beta, mix = float(cfg.beta), float(cfg.server_mix)
@@ -187,9 +187,23 @@ def make_tick_step(cfg: AsyncConfig, server: FederatedServer,
 
     ar_k = torch.arange(k, device=dev)
     ar_w = torch.arange(w, device=dev)
+    ar_b = torch.arange(b, dtype=torch.int32, device=dev)
+    want_async = server._metrics.spec.enabled("async")
+
+    def version_lag(buf, version):
+        """The server version minus the oldest buffered entry's (0 when
+        the buffer is empty)."""
+        live_ver = torch.where(
+            ar_b < buf.fill,
+            buf.version.index_select(
+                0, torch.remainder(buf.head + ar_b, b).long()),
+            torch.iinfo(torch.int32).max)
+        return torch.where(buf.fill > 0, version - live_ver.min(),
+                           torch.zeros_like(version))
 
     def tick_step(carry, rd: RoundDraws):
-        params, extras, state, t, pool, buf, version = carry
+        params, extras, state, t, telc, pool, buf, version = carry
+        params_before = params
         with both_branches():
             # -- 1. dispatch ----------------------------------------------
             ids, state = server.select(state, t, rd)
@@ -230,12 +244,21 @@ def make_tick_step(cfg: AsyncConfig, server: FederatedServer,
 
             # -- 3. aggregate -------------------------------------------
             fire = buf.fill >= m
-            params, state, buf, version, _ = cond(
+            params, state, buf, version, ages = cond(
                 fire, aggregate, idle, params, state, buf, version, t)
             ent = state_entropies(fn, state)
-        return ((params, extras, state, t + 1, pool, buf, version),
-                (ids, metrics["train_loss"].mean(), ent, fire, buf.fill,
-                 accepted, dropped, version))
+            ctx = server.telemetry_ctx(t, ids, state, metrics,
+                                       params_before, params,
+                                       new_params, db)
+            if want_async:
+                ctx = ctx._replace(
+                    fired=fire, fill=buf.fill, accepted=accepted,
+                    dropped=dropped, version=version,
+                    version_lag=version_lag(buf, version), agg_ages=ages)
+            telc, tel = server._metrics.step(telc, ctx)
+        return ((params, extras, state, t + 1, telc, pool, buf, version),
+                (ids, ctx.train_loss, ent, fire, buf.fill, accepted,
+                 dropped, version, tel))
 
     return tick_step, init_runtime
 
@@ -265,7 +288,7 @@ class AsyncFederatedServer(FederatedServer):
             selector=cfg.selector, selector_kw=kw, local=cfg.local,
             eval_every=cfg.eval_every, seed=cfg.seed,
             lr_decay_every=cfg.lr_decay_every, lr_decay=cfg.lr_decay,
-            jit_rounds=True)
+            jit_rounds=True, telemetry=tuple(cfg.telemetry))
         super().__init__(init_fn, apply_fn, fed, client_x, client_y,
                          client_mask, test=test, device=device,
                          features_fn=features_fn, availability=availability)
@@ -301,7 +324,7 @@ class AsyncFederatedServer(FederatedServer):
 
     def _store_carry(self, carry) -> None:
         super()._store_carry(carry)
-        self.pool, self.buffer, self.version = carry[4:]
+        self.pool, self.buffer, self.version = carry[5:]
 
     def _record(self, t: int, outs: list) -> None:
         super()._record(t, outs[:3])

@@ -64,16 +64,17 @@ from repro_torch.core.hetero import (head_bias_updates_stacked,
                                      head_num_classes)
 from repro_torch.core.selectors import (Observations, SelectNoise,
                                         make_functional)
-from repro_torch.core.selectors.functional import (TELEMETRY,
-                                                   both_branches,
+from repro_torch.core.selectors.functional import (both_branches,
                                                    draw_gumbel,
                                                    draw_select_noise,
-                                                   not_ported, round_index,
+                                                   round_index,
                                                    state_entropies)
 from repro_torch.fed.client import (LocalSpec, init_extra, make_eval_fn,
                                     make_local_update, make_loss_poll)
 from repro_torch.kernels import build as kernel_build
 from repro_torch.optim import tree_map
+from repro_torch.telemetry import (MetricsSpec, TelemetryCtx,
+                                   client_true_entropy, make_metrics)
 
 @dataclasses.dataclass(frozen=True)
 class FedConfig:
@@ -90,12 +91,13 @@ class FedConfig:
     #: run the segmented round driver (one CUDA graph a round on the
     #: card) instead of the host loop
     jit_rounds: bool = False
-    #: the reference's telemetry groups: only () is ported
+    #: telemetry metric groups to record (``repro_torch.telemetry.
+    #: GROUPS``); () is off.  The groups' fields are extra outputs of
+    #: the round: the training trajectory is bit-identical either way.
     telemetry: tuple = ()
 
     def __post_init__(self):
-        if self.telemetry:
-            raise not_ported("telemetry", self.telemetry, TELEMETRY)
+        MetricsSpec(tuple(self.telemetry))     # an unknown group raises
 
 
 class RoundDraws(NamedTuple):
@@ -267,6 +269,21 @@ class FederatedServer:
             weights=np.asarray(client_mask).sum(axis=1), device=dev, **kw)
         self.requires = self.selector.requires
         self.state = self.selector.init()
+        # telemetry (repro_torch.telemetry): with cfg.telemetry == ()
+        # every field is zero-width and the step computes nothing
+        self._metrics = make_metrics(
+            MetricsSpec(tuple(cfg.telemetry)), fn=self.selector,
+            num_clients=cfg.num_clients, device=dev)
+        self._telc = self._metrics.init()
+        # the selection group's ground truth: the true label entropy of
+        # each client's partition
+        self._true_ent = (
+            client_true_entropy(self.y, self.mask,
+                                int(np.max(np.asarray(client_y))) + 1)
+            if "selection" in cfg.telemetry else None)
+        #: a run's telemetry, {field: (T, ...)} numpy, set by the run
+        self.telemetry: Dict[str, np.ndarray] = {}
+        self._tel_segments: list = []
         self._lu = make_local_update(apply_fn, cfg.local, features_fn)
         n = cfg.num_clients
         self.extras = tree_map(
@@ -361,18 +378,21 @@ class FederatedServer:
                      extras: Optional[dict] = None):
         """The cohort's LocalUpdate from ``params`` and the N-stacked
         ``extras`` (default the current ones): (K-stacked params, the
-        cohort's K-stacked new extras, {"train_loss": (K,)}).  The lr
-        halves every ``lr_decay_every`` rounds: a 0-d tensor computed
-        from the round index ``t`` (a 0-d int32 tensor, or an int)."""
+        cohort's K-stacked new extras, {"train_loss": (K,), "lr_scale":
+        ()}).  The lr halves every ``lr_decay_every`` rounds:
+        ``lr_scale``, a 0-d tensor computed from the round index ``t``
+        (a 0-d int32 tensor, or an int)."""
         cfg, idx = self.cfg, ids.long()
         t = round_index(t, self.device)
         decay = torch.pow(cfg.lr_decay, torch.div(
             t, cfg.lr_decay_every, rounding_mode="floor").float())
         extras = self.extras if extras is None else extras
-        return self._lu(self.params if params is None else params,
-                        tree_map(lambda a: a.index_select(0, idx), extras),
-                        self.x[idx], self.y[idx], self.mask[idx],
-                        perms[:idx.shape[0]], decay)
+        new_params, new_extras, metrics = self._lu(
+            self.params if params is None else params,
+            tree_map(lambda a: a.index_select(0, idx), extras),
+            self.x[idx], self.y[idx], self.mask[idx],
+            perms[:idx.shape[0]], decay)
+        return new_params, new_extras, dict(metrics, lr_scale=decay)
 
     def observe(self, params_before: dict, new_params: dict,
                 grad_perms: Optional[torch.Tensor],
@@ -399,7 +419,8 @@ class FederatedServer:
                rd: RoundDraws):
         """One round, functional: select, local update, aggregate,
         observe, update.  Returns (params, extras, state, ids, the
-        cohort's metrics); writes into nothing it is given."""
+        cohort's metrics, the round's :class:`TelemetryCtx`); writes
+        into nothing it is given."""
         ids, state = self.select(state, t, rd)
         new_params, new_extras, metrics = self.local_update(
             t, ids, rd.perms, params, extras)
@@ -408,16 +429,40 @@ class FederatedServer:
                           new_extras)
         agg = aggregate_params(new_params)
         obs = self.observe(params, new_params, rd.grad_perms, agg)
-        return (agg, extras, self.selector.update(state, t, ids, obs), ids,
-                metrics)
+        state = self.selector.update(state, t, ids, obs)
+        ctx = self.telemetry_ctx(t, ids, state, metrics, params, agg,
+                                 new_params, obs.bias_updates)
+        return agg, extras, state, ids, metrics, ctx
+
+    def telemetry_ctx(self, t, ids, state, metrics: dict,
+                      params_before: dict, params_after: dict,
+                      new_params: dict, bias_updates=None) -> TelemetryCtx:
+        """What the metrics step reads of a round: its ids, the updated
+        selector state, the cohort's mean train loss and lr scale, θ^t,
+        θ^{t+1} and the cohort's Δb (made here for a selector that does
+        not observe it, when the ``training`` group is on)."""
+        if bias_updates is None and self._metrics.spec.enabled("training"):
+            bias_updates = head_bias_updates_stacked(params_before,
+                                                     new_params)
+        return TelemetryCtx(
+            t=t, ids=ids, state=state,
+            train_loss=metrics["train_loss"].mean(),
+            true_entropy=self._true_ent, params_before=params_before,
+            params_after=params_after, bias_updates=bias_updates,
+            lr_scale=metrics["lr_scale"])
 
     def step(self, t, rd: RoundDraws):
         """One host-loop round from the current params, extras and
-        selector state, with round t's draws.  Returns (ids, the
-        cohort's metrics)."""
-        self.params, self.extras, self.state, ids, metrics = self._round(
-            self.params, self.extras, self.state,
-            round_index(t, self.device), rd)
+        selector state, with round t's draws, and its telemetry when
+        ``cfg.telemetry`` names a group.  Returns (ids, the cohort's
+        metrics)."""
+        self.params, self.extras, self.state, ids, metrics, ctx = \
+            self._round(self.params, self.extras, self.state,
+                        round_index(t, self.device), rd)
+        if self.cfg.telemetry:
+            self._telc, tel = self._metrics.step(self._telc, ctx)
+            self._tel_segments.append(
+                {k: v.cpu().numpy()[None] for k, v in tel.items()})
         return ids, metrics
 
     def run(self, progress: bool = False,
@@ -447,18 +492,20 @@ class FederatedServer:
         return self._finish()
 
     def _make_round_step(self) -> Callable:
-        """The scanned driver's round: ``((params, extras, state, t),
-        draws) -> ((params, extras, state, t + 1), (ids, mean train
-        loss, Ĥ or (0,)))``, :meth:`_round` with every ``cond`` on the
-        device."""
+        """The scanned driver's round: ``((params, extras, state, t,
+        telemetry carry), draws) -> ((params, extras, state, t + 1,
+        telemetry carry), (ids, mean train loss, Ĥ or (0,), telemetry
+        dict))``, :meth:`_round` and the metrics step with every
+        ``cond`` on the device."""
         def round_step(carry, rd: RoundDraws):
-            params, extras, state, t = carry
+            params, extras, state, t, telc = carry
             with both_branches():
-                params, extras, state, ids, metrics = self._round(
+                params, extras, state, ids, _, ctx = self._round(
                     params, extras, state, t, rd)
-            return ((params, extras, state, t + 1),
-                    (ids, metrics["train_loss"].mean(),
-                     state_entropies(self.selector, state)))
+                telc, tel = self._metrics.step(telc, ctx)
+            return ((params, extras, state, t + 1, telc),
+                    (ids, ctx.train_loss,
+                     state_entropies(self.selector, state), tel))
 
         return round_step
 
@@ -483,12 +530,14 @@ class FederatedServer:
             with torch.profiler.record_function(f"{self._span}[{n}]"):
                 carry, outs = self._segment(carry, [draws(t + i)
                                                     for i in range(n)])
-                outs = [torch.stack(o).cpu() for o in zip(*outs)]
+                outs = tree_map(lambda *a: torch.stack(a).cpu(), *outs)
             self._store_carry(carry)
             self.history["segment_wall_s"].append(
                 time.perf_counter() - t_start)
             self.history["segment_rounds"].append(n)
-            self._record(t, outs)
+            self._record(t, outs[:-1])
+            self._tel_segments.append(
+                {k: v.numpy() for k, v in outs[-1].items()})
             t += n
             if self.test is not None:
                 self._eval_round(t - 1, progress)
@@ -499,16 +548,19 @@ class FederatedServer:
 
     def _initial_carry(self) -> tuple:
         """The round step's carry from the server's current params,
-        extras and selector state, at round 0."""
+        extras, selector state and telemetry carry, at round 0."""
         return (self.params, self.extras, self.state,
-                torch.zeros((), dtype=torch.int32, device=self.device))
+                torch.zeros((), dtype=torch.int32, device=self.device),
+                self._telc)
 
     def _store_carry(self, carry) -> None:
         self.params, self.extras, self.state = carry[:3]
+        self._telc = carry[4]
 
-    def _record(self, t: int, outs: list) -> None:
-        """A segment's per-round outputs (each stacked over its rounds,
-        on the CPU) into the history, from round ``t``."""
+    def _record(self, t: int, outs: tuple) -> None:
+        """A segment's per-round outputs but the telemetry (each stacked
+        over its rounds, on the CPU) into the history, from round
+        ``t``."""
         ids, loss, ent = outs
         for i in range(ids.shape[0]):
             self.history["round"].append(t + i)
@@ -542,6 +594,10 @@ class FederatedServer:
         rounds = (sum(self.history["segment_rounds"])
                   or len(self.history["wall_s"]))
         self.history["rounds_per_s"] = rounds / wall if wall else None
+        if self._tel_segments:
+            self.telemetry = {
+                k: np.concatenate([seg[k] for seg in self._tel_segments])
+                for k in self._tel_segments[0]}
         return self.history
 
     def _eval_round(self, t: int, progress: bool) -> None:

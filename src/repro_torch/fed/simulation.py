@@ -41,7 +41,7 @@ class ExperimentSpec:
     eval_every: int = 5
     seed: int = 0
     jit_rounds: bool = False       # the segmented driver: see fed.server
-    telemetry: Sequence[str] = ()  # refused: see fed.server.FedConfig
+    telemetry: Sequence[str] = ()  # metric groups: see fed.server.FedConfig
 
 
 def build(spec: ExperimentSpec, device="cuda"):

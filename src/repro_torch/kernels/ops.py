@@ -24,6 +24,9 @@ import torch
 from repro_torch.backend import resolve_device
 from repro_torch.kernels import (decode_attention, fused_stats, gram_update,
                                  hetero_entropy, pairwise)
+# profiler ranges, one a call (no-ops unless REPRO_TRACE=1); trace.py
+# imports nothing of the package, so this closes no cycle
+from repro_torch.telemetry.trace import annotate
 
 
 def _on(device, *tensors: torch.Tensor) -> None:
@@ -33,6 +36,7 @@ def _on(device, *tensors: torch.Tensor) -> None:
             raise ValueError(f"tensor on {t.device}, but device={dev}")
 
 
+@annotate("kernels/fused_row_stats")
 def fused_row_stats(updates: torch.Tensor, temperature: float, *,
                     device="cuda"):
     """(Ĥ, |Δb|₂, RMS) per client in one sweep over (N, C)."""
@@ -40,6 +44,7 @@ def fused_row_stats(updates: torch.Tensor, temperature: float, *,
     return fused_stats.fused_stats(updates, temperature)
 
 
+@annotate("kernels/hics_selection_step")
 def hics_selection_step(updates: torch.Tensor, temperature: float,
                         lam: float = 10.0, normalize: bool = False,
                         gram_in_bf16: bool = False, *, device="cuda"):
@@ -50,6 +55,7 @@ def hics_selection_step(updates: torch.Tensor, temperature: float,
                                         gram_in_bf16=gram_in_bf16)
 
 
+@annotate("kernels/hics_selection_step_cached")
 def hics_selection_step_cached(updates: torch.Tensor, dist: torch.Tensor,
                                stats: torch.Tensor, ids: torch.Tensor,
                                temperature: float, lam: float = 10.0,
@@ -65,6 +71,7 @@ def hics_selection_step_cached(updates: torch.Tensor, dist: torch.Tensor,
         normalize=normalize, gram_in_bf16=gram_in_bf16)
 
 
+@annotate("kernels/gram_row_update")
 def gram_row_update(updates: torch.Tensor, stats: torch.Tensor,
                     ids: torch.Tensor, lam: float = 10.0,
                     gram_in_bf16: bool = False, epilogue: str = "arccos", *,
@@ -77,6 +84,7 @@ def gram_row_update(updates: torch.Tensor, stats: torch.Tensor,
                                        gram_in_bf16=gram_in_bf16)
 
 
+@annotate("kernels/cached_feature_step")
 def cached_feature_step(feats: torch.Tensor, dist: torch.Tensor,
                         stats: torch.Tensor, ids: torch.Tensor,
                         metric: str = "cosine", gram_in_bf16: bool = False,
@@ -90,6 +98,7 @@ def cached_feature_step(feats: torch.Tensor, dist: torch.Tensor,
                                            gram_in_bf16=gram_in_bf16)
 
 
+@annotate("kernels/pairwise_distances")
 def pairwise_distances(updates: torch.Tensor, temperature: float,
                        lam: float = 10.0, gram_in_bf16: bool = False, *,
                        device="cuda"):
@@ -99,6 +108,7 @@ def pairwise_distances(updates: torch.Tensor, temperature: float,
                                         gram_in_bf16=gram_in_bf16)[1]
 
 
+@annotate("kernels/estimate_entropies")
 def estimate_entropies(updates: torch.Tensor, temperature: float, *,
                        device="cuda") -> torch.Tensor:
     """Ĥ over N clients' bias updates: (N, C) f32 or bf16 -> (N,) f32."""
@@ -106,6 +116,7 @@ def estimate_entropies(updates: torch.Tensor, temperature: float, *,
     return hetero_entropy.entropy(updates, temperature)
 
 
+@annotate("kernels/gqa_decode_attention")
 def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          length, scale: float | None = None, *,
                          device="cuda") -> torch.Tensor:

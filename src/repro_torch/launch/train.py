@@ -6,7 +6,9 @@
   * per-round client selection (HiCS-FL or any baseline) through the
     OO shim, from the LM head's Δb,
   * local training of each selected client on one device,
-  * npz checkpointing.
+  * npz checkpointing,
+  * per-round telemetry as JSONL (``--telemetry PATH``: the loss, the
+    fairness fields and the mean Ĥ, under the metric groups' names).
 
 Each round the server broadcasts θ^t, the selected clients run R local
 epochs on their own token stream (one sequence a step, gradients
@@ -49,7 +51,6 @@ from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import get_config
 from repro_torch.core import (head_bias_updates_stacked, head_num_classes,
                               make_selector)
-from repro_torch.core.selectors.functional import TELEMETRY, not_ported
 from repro_torch.data import make_lm_streams
 from repro_torch.models import get_model
 from repro_torch.optim import (adam, clip_by_global_norm_, tree_leaves,
@@ -180,6 +181,34 @@ def train_rounds(api, params: dict, tokens: torch.Tensor, selector, *,
     return params, history
 
 
+def write_telemetry(path, history: dict, arch: str, args) -> None:
+    """The run's telemetry as JSONL (``telemetry.write_run``): the
+    fields of the round step's metric groups that a host loop of the
+    history can give, under the same names, so tools read both."""
+    from repro_torch.telemetry import write_run
+    counts = np.zeros(args.clients)
+    part, eff = [], []
+    for ids in history["selected"]:
+        counts[ids] += 1
+        p = counts / counts.sum()
+        h = -(p * np.log(np.where(p > 0, p, 1.0))).sum()
+        part.append((counts > 0).mean())
+        eff.append(np.exp(h) / args.clients)
+    tel = {"training/loss": np.asarray(history["loss"], np.float32),
+           "fairness/participation": np.asarray(part, np.float32),
+           "fairness/eff_participation": np.asarray(eff, np.float32)}
+    ents = history["bias_entropy"]
+    if any(e is not None for e in ents):
+        tel["selection/ent_mean"] = np.asarray(
+            [np.nan if e is None else float(np.mean(e)) for e in ents],
+            np.float32)
+    write_run(path, tel, meta={"driver": "launch.train", "arch": arch,
+                               "selector": args.selector,
+                               "rounds": args.rounds,
+                               "clients": args.clients})
+    print(f"wrote telemetry {path}", flush=True)
+
+
 def main(argv=None) -> dict:
     """The reference's CLI.  Returns {"history", "params" (final),
     "cfg", "tokens", "selector", "record", "init_s"}; the history
@@ -201,13 +230,11 @@ def main(argv=None) -> dict:
                     default=[0.05, 0.05, 0.05, 5.0])
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--telemetry", default="",
-                    help="per-round telemetry (not ported: raises)")
+                    help="write per-round telemetry JSONL to this path")
     ap.add_argument("--out", default="")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.telemetry:
-        raise not_ported("telemetry", args.telemetry, TELEMETRY)
 
     device = resolve_device(args.device)
     set_precision()
@@ -242,6 +269,8 @@ def main(argv=None) -> dict:
                                    ckpt_dir=args.ckpt_dir, record=record)
     history["select_seconds"] = sel.select_seconds
     history["update_seconds"] = sel.update_seconds
+    if args.telemetry:
+        write_telemetry(args.telemetry, history, cfg.name, args)
     if args.out:
         Path(args.out).write_text(json.dumps(history, indent=1))
     print("done. final loss:", history["loss"][-1])

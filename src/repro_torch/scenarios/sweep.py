@@ -39,7 +39,6 @@ import torch
 from repro_torch.backend import resolve_device, set_precision
 from repro_torch.configs import get_config
 from repro_torch.core.selectors import SELECTORS, make_functional
-from repro_torch.core.selectors.functional import TELEMETRY, not_ported
 from repro_torch.data import SyntheticSpec
 from repro_torch.fed.async_server import (AsyncConfig, AsyncFederatedServer,
                                           check_async_selector)
@@ -51,6 +50,7 @@ from repro_torch.optim import tree_map
 from repro_torch.scenarios.partition_device import Partition
 from repro_torch.scenarios.registry import (Scenario, get_scenario,
                                             make_dataset, materialize)
+from repro_torch.telemetry import MetricsSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,12 +72,12 @@ class SweepSpec:
     lr_decay: float = 0.5
     data_seed: int = 0
     data: Optional[SyntheticSpec] = None   # overrides every scenario's
-    #: the reference's telemetry groups: only () is ported
+    #: telemetry metric groups every seed records (``repro_torch.
+    #: telemetry.GROUPS``); a cell's ``telemetry`` is {field: (S, T, ...)}
     telemetry: Sequence[str] = ()
 
     def __post_init__(self):
-        if tuple(self.telemetry):
-            raise not_ported("telemetry", tuple(self.telemetry), TELEMETRY)
+        MetricsSpec(tuple(self.telemetry))     # an unknown group raises
 
     def capacity(self) -> int:
         if self.cap is not None:
@@ -128,7 +128,7 @@ def _fed_config(spec: SweepSpec, selector: str, seed: int,
         selector_kw=spec.selector_kw, local=spec.local,
         eval_every=spec.rounds, seed=int(seed),
         lr_decay_every=spec.lr_decay_every, lr_decay=spec.lr_decay,
-        jit_rounds=jit_rounds)
+        jit_rounds=jit_rounds, telemetry=tuple(spec.telemetry))
 
 
 def _cell_data(spec: SweepSpec, scn: Scenario, device):
@@ -176,7 +176,9 @@ class PairRun:
     """One (scenario, selector) cell: a server per seed (each one's
     initial carry kept, so the cell can run again), each seed's draws
     for every round on the device, and the graph that runs all seeds'
-    round steps a round once captured."""
+    round steps a round once captured.  Each seed carries its own
+    telemetry carry, its true entropies from its own partition; the
+    last run's telemetry is ``telemetry``, {field: (S, T, ...)}."""
     scenario: Scenario
     selector: str
     servers: List[FederatedServer]
@@ -189,6 +191,8 @@ class PairRun:
     captures: int = dataclasses.field(default=0, init=False)
     #: host-clock seconds of the last :meth:`run`, its capture included
     wall_s: float = dataclasses.field(default=0.0, init=False)
+    telemetry: Dict[str, np.ndarray] = dataclasses.field(
+        default_factory=dict, init=False)
 
     def __post_init__(self):
         self.carries0 = [srv._initial_carry() for srv in self.servers]
@@ -208,7 +212,8 @@ class PairRun:
     @staticmethod
     def _seed_step(srv: FederatedServer):
         """The server's round step, and after it the round's mean Ĥ and,
-        for the sync server, the test accuracy."""
+        for the sync server, the test accuracy; its telemetry dict
+        last."""
         step = srv._make_round_step()
         sync = not isinstance(srv, AsyncFederatedServer)
 
@@ -222,7 +227,8 @@ class PairRun:
                 _, acc = srv._eval(carry[0], srv.test["x"], srv.test["y"],
                                    srv.test["mask"])
                 extra = (acc,)
-            return carry, (out[0], out[1], ent_mean) + out[3:] + extra
+            return carry, ((out[0], out[1], ent_mean) + out[3:-1] + extra
+                           + (out[-1],))
 
         return seed_step
 
@@ -238,8 +244,8 @@ class PairRun:
         Returns the round step's outputs, each stacked (S, T, ...) as
         numpy: (ids, train loss, mean Ĥ, then the async tick's fired,
         fill, accepted, dropped and version, or the sync round's test
-        accuracy), and leaves each server holding its seed's final
-        carry."""
+        accuracy), sets :attr:`telemetry` and leaves each server holding
+        its seed's final carry."""
         dev = self.servers[0].device
         carries = tuple(self.carries0)
         rounds = len(self.draws[0])
@@ -259,13 +265,16 @@ class PairRun:
             outs.append(out)
         if dev.type == "cuda":
             carries = tree_map(torch.clone, self.graph.carry)
-        stacked = [[torch.stack([o[i][j] for o in outs]).cpu().numpy()
-                    for j in range(len(outs[0][i]))]
+        stacked = [tree_map(lambda *a: torch.stack(a).cpu().numpy(),
+                            *[o[i] for o in outs])
                    for i in range(len(self.servers))]
         self.wall_s = time.perf_counter() - t0
         for srv, carry in zip(self.servers, carries):
             srv._store_carry(carry)
-        return [np.stack(field) for field in zip(*stacked)]
+        tel = [seed[-1] for seed in stacked]
+        self.telemetry = {k: np.stack([t[k] for t in tel]) for k in tel[0]}
+        return [np.stack(field) for field in zip(*[seed[:-1]
+                                                   for seed in stacked])]
 
 
 def _overflow(parts: List[Partition]) -> float:
@@ -319,6 +328,7 @@ def run_sweep(spec: SweepSpec, progress: bool = False,
                 "train_loss_mean": loss.mean(axis=0).tolist(),
                 "overflow_frac": pair.overflow_frac,
                 "wall_s": pair.wall_s,
+                "telemetry": pair.telemetry,   # {field: (S, T, ...)}
             }
             grid[f"{scenario_name}/{selector}"] = cell
             if progress:
@@ -374,7 +384,7 @@ def build_async_pair(spec: SweepSpec, scenario_name: str, selector: str,
         capacity=capacity, threshold=threshold, beta=beta,
         server_mix=server_mix, latency=scn.latency, max_lag=max_lag,
         eval_every=spec.rounds, lr_decay_every=spec.lr_decay_every,
-        lr_decay=spec.lr_decay)
+        lr_decay=spec.lr_decay, telemetry=tuple(spec.telemetry))
     train, test, model, num_classes = _cell_data(spec, scn, dev)
     parts, servers = [], []
     for s in spec.seeds:
@@ -424,6 +434,7 @@ def run_async_sweep(spec: SweepSpec, capacity: int = 0,
                 "final_version": version[:, -1].tolist(),
                 "overflow_frac": pair.overflow_frac,
                 "wall_s": pair.wall_s,
+                "telemetry": pair.telemetry,   # {field: (S, T, ...)}
             }
             grid[f"{scenario_name}/{selector}"] = cell
             if progress:

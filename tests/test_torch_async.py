@@ -18,7 +18,8 @@ paper-mlp, 12 clients, K = 3, 2 seeds.  Held here:
     key chain, loss within 1e-4; and one ``run_async_sweep`` cell
     against the reference's;
 (f) the tick step reading nothing on the host;
-(g) the refusals: telemetry, ``full_all`` selectors, M > B.
+(g) the refusals: an unknown telemetry group, ``full_all`` selectors,
+    M > B; the ``async`` group recorded.
 
 Each test loops over its cases (``torch_parity.each``).
 """
@@ -340,19 +341,27 @@ def test_tick_step_reads_nothing_on_the_host():
     finally:
         for name, fn in saved.items():
             setattr(torch.Tensor, name, fn)
-    assert int(carry[3]) == 6 and len(out) == 8
+    assert int(carry[3]) == 6 and len(out) == 9
 
 
 def test_async_refusals():
-    """(g) telemetry (``NotImplementedError`` naming its item), DivFL's
-    ideal mode (``full_all``) in both entry points, M > B."""
-    with pytest.raises(NotImplementedError, match="queue 1: telemetry"):
-        AsyncConfig(telemetry=("async",))
+    """(g) an unknown telemetry group (``ValueError``), DivFL's ideal
+    mode (``full_all``) in both entry points, M > B; the ``async``
+    group runs and records every tick."""
+    with pytest.raises(ValueError, match="unknown metric group"):
+        AsyncConfig(telemetry=("asink",))
+    _, _, cx, cy, cm, _ = _client_data("dir_mild")
+    init, apply = _port_model()
+    srv = AsyncFederatedServer(init, apply, AsyncConfig(
+        num_clients=N, num_select=K, ticks=2, telemetry=("async",)),
+        cx, cy, cm, device="cpu")
+    hist = srv.run()
+    assert np.array_equal(srv.telemetry["async/version"],
+                          np.float32(hist["version"]))
+    assert srv.telemetry["async/agg_ages"].shape == (2, K)
     _, spec = _sweep_specs("dir_mild")
     with pytest.raises(ValueError, match="async semantics"):
         build_async_pair(spec, "dir_mild", "divfl", device="cpu")
-    _, _, cx, cy, cm, _ = _client_data("dir_mild")
-    init, apply = _port_model()
     with pytest.raises(ValueError, match="async semantics"):
         AsyncFederatedServer(init, apply, AsyncConfig(
             num_clients=N, num_select=K, ticks=2, selector="divfl"),

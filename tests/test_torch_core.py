@@ -278,14 +278,14 @@ def test_divfl_unported_options_raise():
 def test_unported_local_and_driver_options_raise():
     """The reference's ``LocalSpec``, ``FedConfig`` and
     ``ExperimentSpec`` fields are taken.  Every algorithm × optimizer
-    pair builds and runs two rounds; telemetry, still refused, raises
-    ``NotImplementedError`` naming its ROADMAP.md item by title, an
-    unknown algo or optimizer ``ValueError``, as the reference's."""
-    refused = [lambda: FedConfig(telemetry=("selection",)),
-               lambda: build(ExperimentSpec(telemetry=["training"]),
-                             device="cpu")]
-    for make in refused:
-        with pytest.raises(NotImplementedError, match="queue 1: telemetry"):
+    pair builds and runs two rounds, recording the ``training``
+    telemetry group; an unknown telemetry group, algo or optimizer
+    raises ``ValueError``, as the reference's."""
+    assert FedConfig(telemetry=("selection",)).telemetry == ("selection",)
+    for make in (lambda: FedConfig(telemetry=("selektion",)),
+                 lambda: build(ExperimentSpec(telemetry=["bogus"]),
+                               device="cpu")):
+        with pytest.raises(ValueError, match="unknown metric group"):
             make()
     for bad in (dict(algo="fedsgd"), dict(optimizer="lamb")):
         with pytest.raises(ValueError, match="must be one of"):
@@ -301,13 +301,17 @@ def test_unported_local_and_driver_options_raise():
         for optimizer in ("sgd", "momentum", "adam"):
             local = LocalSpec(algo=algo, optimizer=optimizer, lr=0.05,
                               epochs=1, batch_size=16, mu=0.01, moon_tau=0.2)
-            hist = build(ExperimentSpec(
+            server = build(ExperimentSpec(
                 arch="paper-mlp", num_clients=4, num_select=2, rounds=2,
                 alphas=(0.5,), local=local, samples_train=80,
-                samples_test=20, data=SyntheticSpec(dim=8)),
-                device="cpu")[0].run()
+                samples_test=20, data=SyntheticSpec(dim=8),
+                telemetry=["training"]), device="cpu")[0]
+            hist = server.run()
             assert len(hist["selected"]) == 2
             assert np.isfinite(hist["train_loss"]).all(), (algo, optimizer)
+            assert np.array_equal(server.telemetry["training/loss"],
+                                  np.float32(hist["train_loss"]))
+            assert server.telemetry["fairness/sel_counts"].shape == (2, 0)
 
 
 def test_hics_bf16_run_picks_jax_participants():

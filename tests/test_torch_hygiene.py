@@ -1,7 +1,9 @@
 """Rules of the PyTorch port that no parity test would catch.
 
 * The port, ``chip_smoke.py`` and ``tools/{strip,decode,stats}_profile.py``
-  import neither JAX nor anything of the JAX package ``repro``.
+  import neither JAX nor anything of the JAX package ``repro``; the
+  telemetry package is among them, and its ``trace.py`` imports nothing
+  of the port.
 * The kernel modules import without ``triton`` and without ``nvcc``.
 * Entry points default to the card (the ops, the selector factories,
   the experiment builder, model init, the serve entry point, the sweep
@@ -70,6 +72,24 @@ def test_kernel_modules_import_without_triton_or_nvcc(tmp_path):
     assert out.stdout.strip() == "ok"
 
 
+def test_telemetry_package_is_covered_and_trace_is_a_leaf():
+    """The telemetry package is among the files held to no JAX and no
+    ``repro``, and ``trace.py``, which the kernel ops import, imports
+    nothing of ``repro_torch`` (nor JAX, nor the reference)."""
+    tel = sorted((PORT / "telemetry").glob("*.py"))
+    assert [p.name for p in tel] == ["__init__.py", "export.py",
+                                     "metrics.py", "trace.py"]
+    assert set(tel) <= set(_port_files())
+    trace = PORT / "telemetry" / "trace.py"
+    tree = ast.parse(trace.read_text())
+    assert not [n for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom) and n.level > 0]
+    bad = [mod for mod in _imported_modules(trace)
+           if mod.split(".")[0] in ("repro_torch", "repro", "jax",
+                                    "jaxlib")]
+    assert not bad, bad
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -101,6 +121,13 @@ def test_ops_without_device_raise_without_cuda(no_cuda):
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_make_metrics_without_device_raises_without_cuda(no_cuda):
+    """The telemetry step is made for the card unless told otherwise."""
+    from repro_torch.telemetry import MetricsSpec, make_metrics
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_metrics(MetricsSpec.all(), num_clients=4)
 
 
 def test_baseline_entry_points_raise_without_cuda(no_cuda):

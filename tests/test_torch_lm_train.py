@@ -356,7 +356,8 @@ def test_train_loop_picks_jax_participants(tmp_path, monkeypatch, capsys):
 def test_train_cli_runs_every_selector(tmp_path, capsys):
     """The port's CLI at the reference's default arch (qwen3-8b,
     reduced) with each selector name: the reference's history keys and
-    printed lines, finite losses."""
+    printed lines, finite losses; ``--telemetry`` writes a header and a
+    record a round, the loss the history's."""
     for name in sorted(SELECTORS):
         out = tmp_path / f"{name}.json"
         res = ttrain.main(["--device", "cpu", "--selector", name,
@@ -373,8 +374,14 @@ def test_train_cli_runs_every_selector(tmp_path, capsys):
         text = capsys.readouterr().out
         assert text.startswith("arch=qwen3-8b-reduced params=")
         assert "round   2 loss=" in text and "done. final loss:" in text
-    with pytest.raises(NotImplementedError, match="queue 1: telemetry"):
-        ttrain.main(["--device", "cpu", "--telemetry", "t.jsonl"])
+    tel = tmp_path / "t.jsonl"
+    res = ttrain.main(["--device", "cpu", "--rounds", "2", "--clients", "4",
+                       "--select", "2", "--seq-len", "8",
+                       "--seqs-per-client", "1", "--telemetry", str(tel)])
+    records = [json.loads(line) for line in tel.read_text().splitlines()]
+    assert records[0]["kind"] == "header" and len(records) == 3
+    assert [r["training/loss"] for r in records[1:]] == [
+        float(np.float32(x)) for x in res["history"]["loss"]]
 
 
 def test_npz_checkpoints_cross_load(tmp_path):

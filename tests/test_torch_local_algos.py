@@ -224,8 +224,7 @@ def test_round_step_with_extras_reads_nothing_on_the_host():
             data=SyntheticSpec(), local=_local(LocalSpec, algo),
             jit_rounds=True, **dict(RUN, rounds=4)), device="cpu")
         step = server._make_round_step()
-        carry = (server.params, server.extras, server.state,
-                 torch.zeros((), dtype=torch.int32))
+        carry = server._initial_carry()
         draws = [server._draw_host(t) for t in range(4)]
         saved = {name: getattr(torch.Tensor, name) for name in HOST_READS}
 

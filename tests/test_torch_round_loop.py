@@ -184,8 +184,7 @@ def _no_host_reads(selector, kw):
     server, _ = build(_spec(selector, True, rounds=4, selector_kw=kw),
                       device="cpu")
     step = server._make_round_step()
-    carry = (server.params, server.extras, server.state,
-             torch.zeros((), dtype=torch.int32))
+    carry = server._initial_carry()
     draws = [server._draw_host(t) for t in range(4)]
     saved = {name: getattr(torch.Tensor, name) for name in HOST_READS}
 

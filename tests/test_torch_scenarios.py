@@ -23,8 +23,8 @@ paper-mlp, 12 clients, K = 3, 6 rounds, 2 seeds.  Held here:
     key chain; and, on the port's own draws, each seed bit-equal to
     the port's ``run_host_reference`` in both drivers;
 (g) the sweep's round step reading nothing on the host;
-(h) the refusals: telemetry, a time-varying host reference, unknown
-    names.
+(h) the refusals: an unknown telemetry group, a time-varying host
+    reference, unknown names; a telemetry group recorded per seed.
 
 Each test loops over its cases (``torch_parity.each``).
 """
@@ -438,11 +438,19 @@ def test_sweep_step_reads_nothing_on_the_host():
 
 
 def test_sweep_refusals():
-    """(h) telemetry (``NotImplementedError`` naming its item), a host
-    reference of a time-varying scenario, unknown names."""
-    with pytest.raises(NotImplementedError, match="queue 1: telemetry"):
-        SweepSpec(telemetry=("selection",))
+    """(h) an unknown telemetry group (``ValueError``), a host
+    reference of a time-varying scenario, unknown names; the
+    ``fairness`` group runs, (S, T, N) in the cell."""
+    with pytest.raises(ValueError, match="unknown metric group"):
+        SweepSpec(telemetry=("selektion",))
     _, spec = _specs("flaky_severe", "hics")
+    fair = dataclasses.replace(spec, rounds=2, telemetry=("fairness",))
+    cell = run_sweep(fair, device="cpu")["grid"]["flaky_severe/hics"]
+    counts = cell["telemetry"]["fairness/sel_counts"]
+    assert counts.shape == (len(SEEDS), 2, N)
+    for i in range(len(SEEDS)):
+        assert np.array_equal(counts[i, -1], np.bincount(
+            cell["selected"][i].ravel(), minlength=N))
     with pytest.raises(ValueError, match="availability"):
         run_host_reference(spec, "flaky_severe", "hics", 0, device="cpu")
     with pytest.raises(KeyError, match="unknown selector"):
