@@ -52,6 +52,17 @@ their plain versions, the entropy kernel's path through
 the serve entry point (batch 4, prompt 64, 32 greedy tokens, beside
 its byte bound), the decode kernel on the live bf16 cache, and the same
 weights cut to two layers on the card against the port's CPU run.
+Then phase ``transformer_family`` (``python3 chip_smoke.py
+transformer_family`` runs it after ``serve_kernels``, whose decode
+cases include dh 256): gemma-7b, pixtral-12b and granite-moe-1b-a400m
+at published width and depth, mixtral-8x22b (2 layers) and
+deepseek-coder-33b (8 layers) at published width through the serve
+entry point's functions (batch 4, 16 greedy tokens, the decode kernel
+at each arch's geometry and on its live cache), mixtral (1 layer) and
+granite fine-tuned through ``train.train_rounds`` with the selection
+replayed on the CPU, two-layer cuts of granite, gemma and pixtral on
+the card against the port's CPU run (the MoE router's ids among
+them), and ``repro_torch.examples.serve_batched`` with mixtral.
 Then phase ``lm_train`` (``python3 chip_smoke.py lm_train`` alone):
 federated fine-tuning of qwen2.5-3b at full width and depth through
 ``repro_torch.launch.train`` (8 clients, K = 2, 6 rounds), its peak
@@ -64,8 +75,8 @@ federated_finetune`` at its ~100M default, cut to 6 rounds.  Last,
 phase ``scenarios`` (alone: ``python3 chip_smoke.py scenarios``) at
 the slice's spec: the five partition kinds built on the card from CPU
 draws (bit-equal to the CPU's), ``run_sweep`` over four scenarios ×
-hics and cs × four seeds × 14 rounds (one CUDA graph a round for the
-four seeds; each seed bit-equal to its scanned run, picks available,
+hics and cs × two seeds × 14 rounds (one CUDA graph a round for the
+two seeds; each seed bit-equal to its scanned run, picks available,
 each cell's first rounds against the CPU), the async server at identity
 latency (bit-equal to the sync scanned run), under stragglers and
 flash crowds (arrivals accounted, versions counted) and at M = 2K
@@ -74,7 +85,7 @@ cache against from-scratch builds), and ``run_async_sweep`` over three
 traffic shapes.  Then phase ``telemetry`` (alone: ``python3
 chip_smoke.py telemetry``) at the slice's spec: the graph driver, the
 host loop, the async server at identity latency and ``run_sweep`` over
-two scenarios × hics × four seeds, each with telemetry off and on
+two scenarios × hics × two seeds, each with telemetry off and on
 (bit-equal, one capture each), the fields against the host's
 recomputation from each run's history, ms a replay with and without
 telemetry in turns, each sweep seed's fields bit-equal to its scanned
@@ -141,7 +152,11 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_kernel, kernel_splits)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import make_selector  # noqa: E402
+from repro_torch.core import head_num_classes  # noqa: E402
+from repro_torch.data import make_lm_streams  # noqa: E402
 from repro_torch.examples import federated_finetune  # noqa: E402
+from repro_torch.examples import serve_batched  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import get_model, make_classifier  # noqa: E402
 from repro_torch.optim import tree_map  # noqa: E402
@@ -798,8 +813,9 @@ def round_split(server) -> dict:
 def first_rounds_vs_cpu(spec, dev, hist, tag: str,
                         horizon: int = CPU_ROUNDS,
                         select_rounds: int = CPU_ROUNDS,
-                        one_step: bool = False, make=None) -> dict:
-    """The card run's first ``CPU_ROUNDS`` rounds against the port's own
+                        one_step: bool = False, make=None,
+                        cpu_rounds: int = CPU_ROUNDS) -> dict:
+    """The card run's first ``cpu_rounds`` rounds against the port's own
     CPU run of the same spec.
 
     Participants, free-running: the CPU run picks the card run's clients
@@ -808,7 +824,7 @@ def first_rounds_vs_cpu(spec, dev, hist, tag: str,
     first ``select_rounds`` the plain select on the CPU, given the card's
     selector state and noise, must pick the card's clients (past the
     coverage sweep, the clustered selects on the card's own cache); in
-    each of the first ``CPU_ROUNDS`` the cohort's update on the CPU from
+    each of the first ``cpu_rounds`` the cohort's update on the CPU from
     the card's params and per-client extras at the round's start, with
     the same ids and permutations, must give the card's train loss
     within 1e-3 relative.  Where the run keeps per-client extras, the
@@ -833,12 +849,12 @@ def first_rounds_vs_cpu(spec, dev, hist, tag: str,
     if make is None:
         make = lambda rounds, d: build(
             dataclasses.replace(spec, rounds=rounds), device=d)[0]
-    cpu_hist = make(CPU_ROUNDS, "cpu").run()
+    cpu_hist = make(cpu_rounds, "cpu").run()
     require(f"{tag}: selected differs from the CPU run",
             cpu_hist["selected"][:horizon] == hist["selected"][:horizon])
     free = [abs(a - b) / abs(b) for a, b in
             zip(hist["train_loss"], cpu_hist["train_loss"])]
-    forced_rounds = max(select_rounds, CPU_ROUNDS)
+    forced_rounds = max(select_rounds, cpu_rounds)
     card, cpu = make(forced_rounds, dev), make(forced_rounds, "cpu")
     forced, forced_ids, extras_err, step_err = [], [], [], []
     writeback, clustered = [], 0
@@ -850,7 +866,7 @@ def first_rounds_vs_cpu(spec, dev, hist, tag: str,
         ids_cpu, _ = cpu.select(_cpu(card.state), t, _tree_cpu(rd))
         ids, metrics = card.step(t, rd)
         forced_ids.append(ids_cpu.tolist() == ids.tolist())
-        if t >= CPU_ROUNDS:
+        if t >= cpu_rounds:
             continue
         cpu.params = params
         _, ex_cpu, m_cpu = cpu.local_update(t, ids.cpu(), rd.perms.cpu(),
@@ -879,7 +895,7 @@ def first_rounds_vs_cpu(spec, dev, hist, tag: str,
     worst = max((max(e.values()) for e in step_err), default=0.0)
     require(f"{tag}: one step moves the params or extras otherwise than "
             f"on the CPU, by {worst} of the largest move", worst <= 1e-3)
-    out = {"rounds": CPU_ROUNDS, "participants_horizon": horizon,
+    out = {"rounds": cpu_rounds, "participants_horizon": horizon,
            "cpu_selected": cpu_hist["selected"],
            "cpu_train_loss": cpu_hist["train_loss"],
            "free_running_rel_loss_diff": free,
@@ -891,7 +907,7 @@ def first_rounds_vs_cpu(spec, dev, hist, tag: str,
         out["teacher_forced_round_extras_rel_err"] = extras_err
     if one_step:
         out["one_step_rel_err"] = step_err
-    if select_rounds > CPU_ROUNDS:
+    if select_rounds > cpu_rounds:
         out["clustered_selects_vs_plain"] = clustered
     return out
 
@@ -1656,6 +1672,9 @@ LOCAL_RUNS = [
 ]
 #: the runs with per-client extras, run again through the graph driver
 LOCAL_GRAPH_RUNS = ("feddyn", "moon")
+#: the rounds each run is held to the CPU in, one fewer than the other
+#: phases' CPU_ROUNDS to keep the whole script in its time
+LOCAL_CPU_ROUNDS = 2
 
 
 def local_run(label: str, changes: dict, dev):
@@ -1697,9 +1716,10 @@ def local_run(label: str, changes: dict, dev):
            "selected": hist["selected"], "train_loss": hist["train_loss"],
            "test_acc": hist["test_acc"],
            "vs_cpu": first_rounds_vs_cpu(
-               spec, dev, hist, tag,
-               select_rounds=ROUNDS if clustering else CPU_ROUNDS,
-               one_step=not clustering and spec.local.optimizer != "adam"),
+               spec, dev, hist, tag, horizon=LOCAL_CPU_ROUNDS,
+               select_rounds=ROUNDS if clustering else LOCAL_CPU_ROUNDS,
+               one_step=not clustering and spec.local.optimizer != "adam",
+               cpu_rounds=LOCAL_CPU_ROUNDS),
            "select_vs_plain": select_vs_plain(server, incremental, tag, kw)}
     if server.extras:
         out["extras_max_abs"] = {key: max(float(a.abs().max())
@@ -1935,6 +1955,15 @@ def serve_kernels_phase(dev):
         for g in (2, 8):
             for width in (64, 128):
                 decode.append(decode_case(4, 2 * g, 2, width, 512, dt, dev))
+    # dh 256: the reference's own case (B2 H4 KV4 S128, G 1), gemma's
+    # serve shape (B4 H16 KV16 S512, timed), G 4 (GP 4, the widest at
+    # dh 256) and ragged lengths with a length-0 row
+    for dt in (torch.float32, torch.bfloat16):
+        decode.append(decode_case(2, 4, 4, 256, 128, dt, dev))
+        decode.append(decode_case(4, 16, 16, 256, 512, dt, dev, timed=True))
+        decode.append(decode_case(4, 8, 2, 256, 512, dt, dev))
+        decode.append(decode_case(3, 16, 16, 256, 512, dt, dev,
+                                  lengths=[0, 1, 300]))
     d32k = SHAPES["decode_32k"]
     for dt in (torch.float32, torch.bfloat16):   # the bf16 layer last
         decode.append(decode_case(d32k.global_batch, h, kv, dh,
@@ -2090,7 +2119,9 @@ def serve_parity_phase(res, dev):
     api = get_model(cfg)
     b, gen = res["tokens"].shape
     rng = np.random.default_rng(1)
-    prompt = rng.integers(0, cfg.vocab_size, (b, 64))
+    prompt = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size,
+                                                  (b, 64)),
+                                     dtype=torch.int32)}
     t0 = time.perf_counter()
     cpu_logits, cpu_tokens = _teacher_forced(api, cpu, prompt, gen, None)
     cpu_s = time.perf_counter() - t0
@@ -2125,15 +2156,15 @@ def _map(fn, tree):
 
 
 def _teacher_forced(api, params, prompt, gen, forced, dev="cpu"):
-    """Prefill ``prompt``, then ``gen - 1`` decode steps, each fed the
-    greedy token of ``forced`` (the run's own greedy tokens when None).
-    Returns ([logits (B, V) of the prefill and of every step] on the
-    CPU, the greedy tokens (B, gen))."""
-    tokens = torch.tensor(prompt, dtype=torch.int32, device=dev)
-    logits, cache = api.prefill(params, {"tokens": tokens},
-                                cache_extra=gen)
+    """Prefill ``prompt`` (a batch dict of CPU tensors: tokens (B, S),
+    a VLM's with its patches), then ``gen - 1`` decode steps,
+    each fed the greedy token of ``forced`` (the run's own greedy tokens
+    when None).  Returns ([logits (B, V) of the prefill and of every
+    step] on the CPU, the greedy tokens (B, gen))."""
+    batch = {k: v.to(dev) for k, v in prompt.items()}
+    logits, cache = api.prefill(params, batch, cache_extra=gen)
     out, picks = [logits[:, -1].cpu()], []
-    pos = prompt.shape[1]
+    pos = cache["k"].shape[2] - gen
     for i in range(gen):
         pick = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         picks.append(pick.cpu())
@@ -2146,6 +2177,338 @@ def _teacher_forced(api, params, prompt, gen, forced, dev="cpu"):
         out.append(logits[:, -1].cpu())
         pos += 1
     return out, torch.stack(picks, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the transformer family: gemma-7b, deepseek-coder-33b,
+# granite-moe-1b-a400m, mixtral-8x22b, pixtral-12b
+# ---------------------------------------------------------------------------
+
+#: (arch, layers kept): published widths, the depth cut where the f32
+#: weights of the whole model would not fit the card
+FAMILY_SERVE = (("granite-moe-1b-a400m", None), ("gemma-7b", None),
+                ("pixtral-12b", None), ("mixtral-8x22b", 2),
+                ("deepseek-coder-33b", 8))
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_VLM_TEXT, FAMILY_GEN = 4, 64, 128, 16
+FAMILY_PARITY = ("granite-moe-1b-a400m", "gemma-7b", "pixtral-12b")
+#: (arch, layers kept, rounds) of the fine-tunes
+FAMILY_FT = (("mixtral-8x22b", 1, 3), ("granite-moe-1b-a400m", None, 2))
+FT_CLIENTS, FT_SELECT, FT_SEQS, FT_SEQ_LEN = 4, 2, 4, 128
+
+
+def family_cfg(arch: str, layers=None):
+    cfg = get_config(arch)
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, num_layers=layers,
+                               name=f"{arch}-{layers}layers")
+
+
+def family_prompt(cfg) -> int:
+    """The serve prompt's positions: 64 text tokens, or a VLM's P
+    patches then 128 tokens (the prefill attends in query chunks of
+    128, so P + S must be at most 128 or a multiple of it, as in the
+    reference: 256 + 64 is neither)."""
+    if cfg.vlm is None:
+        return FAMILY_PROMPT
+    return cfg.vlm.num_patches + FAMILY_VLM_TEXT
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def family_bounds(params, cfg, b: int, positions: int, gen: int) -> dict:
+    """Least times of a prefill over ``positions`` (P + S) and of a
+    decode step, f32 weights: the larger of the weights read once (the
+    embedding table gives only B·T rows, unless it is the tied head,
+    which reads it whole) plus, in decode, the bf16 K/V of the mean
+    valid cache length, over the HBM rate, and 2 operations a weight a
+    token over the f32 peak (a MoE layer's experts at K/E, the head on
+    the last position only in prefill).  Every expert is counted as
+    read: at B·K >= E (mixtral 8 of 8, granite 32 of 32) a step's
+    tokens can route to all of them."""
+    embed = params["embed"]
+    n_head = cfg.vocab_size * cfg.d_model
+    n_proj = (cfg.vlm.patch_embed_dim * cfg.d_model if cfg.vlm else 0)
+    n_body = sum(t.numel() for t in _leaves(params["layers"]))
+    if cfg.moe is not None:
+        moe = params["layers"]["moe"]
+        experts = sum(moe[k].numel() for k in ("wi0", "wi1", "wo"))
+        n_body -= experts * (1 - cfg.moe.top_k / cfg.moe.num_experts)
+    read = _nbytes(params) - (0 if cfg.tie_embeddings
+                              else embed.numel() * embed.element_size())
+    patches = cfg.vlm.num_patches if cfg.vlm else 0
+    prefill_flops = (2 * n_body * b * positions + 2 * n_head * b
+                     + 2 * n_proj * b * patches)
+    mean_len = positions + gen / 2
+    cache = (2 * cfg.num_layers * b * mean_len * cfg.num_kv_heads
+             * cfg.resolved_head_dim() * 2)
+    decode_flops = 2 * (n_body + n_head) * b
+    return {"prefill_bound_ms": max(prefill_flops / F32_FLOPS_PER_S,
+                                    read / HBM_BYTES_PER_S) * 1e3,
+            "decode_bound_ms_per_token": max(
+                decode_flops / F32_FLOPS_PER_S,
+                (read + cache) / HBM_BYTES_PER_S) * 1e3}
+
+
+def family_serve(arch: str, layers, dev) -> tuple:
+    """One arch through ``serve.generate`` and ``serve.decode_kernel_check``
+    (the serve entry point's own functions) at published width, the
+    counts set to 0 just before and read just after: batch 4, prompt 64
+    text tokens (pixtral: 128 after its 256 patches), 16 greedy tokens;
+    then the decode kernel on the live bf16 cache of the first and last
+    layer.  Returns (its record, its launches)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = family_cfg(arch, layers)
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    b, prompt = FAMILY_BATCH, family_prompt(cfg)
+    batch = serve.make_batch(cfg, rng, b, prompt, dev)
+    kbuild.reset_launches()
+    res = serve.generate(api, params, batch, FAMILY_GEN)
+    kernel_err = serve.decode_kernel_check(cfg, b, rng, dev)
+    torch.cuda.synchronize()
+    launches = dict(kbuild.launches)
+    tag = f"transformer_family serve {cfg.name}"
+    require(f"{tag}: decode_attention was not launched",
+            launches["decode_attention"] > 0)
+    require(f"{tag}: kernel check {kernel_err} > 5e-5", kernel_err <= 5e-5)
+    tokens = res["tokens"]
+    require(f"{tag}: tokens of the wrong shape or out of range",
+            tokens.shape == (b, FAMILY_GEN) and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab_size)
+    require(f"{tag}: cache length {res['length']}",
+            res["length"] == prompt + FAMILY_GEN - 1)
+    cache, length = res["cache"], res["length"]
+    live = {}
+    gq = torch.Generator(device=dev).manual_seed(7)
+    for layer in (0, cfg.num_layers - 1):
+        k, v = cache["k"][layer], cache["v"][layer]
+        q = torch.randn((b, cfg.num_heads, cfg.resolved_head_dim()),
+                        generator=gq, device=dev)
+        got = ops.gqa_decode_attention(q, k, v, length, device=dev)
+        live[f"layer{layer}"] = check(
+            f"{tag}: live cache layer {layer}", got,
+            ref.decode_attention_ref(q, k, v, length), 5e-5, 5e-5)
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "published_layers": get_config(arch).num_layers,
+           "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim()],
+           "batch": b, "prompt_positions": prompt, "gen": FAMILY_GEN,
+           "params": sum(t.numel() for t in _leaves(params)),
+           "weights_gb": _nbytes(params) / 1e9, "init_s": init_s,
+           "prefill_ms": res["prefill_ms"],
+           "decode_ms_per_token": res["decode_ms_per_token"],
+           **family_bounds(params, cfg, b, prompt, FAMILY_GEN),
+           "kernel_check_max_abs_err": kernel_err,
+           "live_cache_length": length, "live_cache_max_abs_err": live,
+           "first_request_tokens": tokens[0].tolist(),
+           "launches": launches,
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del params, res, cache
+    return out, launches
+
+
+class route_recorder:
+    """Records each MoE ``route`` call's probabilities and top-k ids (on
+    the CPU) while it is active: ``moe_block`` looks ``route`` up in its
+    module at every call."""
+
+    def __enter__(self):
+        self.calls, self._route = [], MOE.route
+
+        def rec(p, x, moe_cfg):
+            out = self._route(p, x, moe_cfg)
+            self.calls.append((out[1].detach().cpu(), out[3].cpu()))
+            return out
+        MOE.route = rec
+        return self
+
+    def __exit__(self, *exc):
+        MOE.route = self._route
+
+
+def family_parity(arch: str, dev) -> dict:
+    """The arch cut to two layers at published width, weights from seed
+    0 on the card, copied to the CPU: prefill and 15 decode steps on
+    the card and in the port's CPU run, both fed the CPU run's greedy
+    tokens, at serve_parity's tolerances.  On a MoE cut the prefill's
+    top-k expert ids of every layer on the card against the CPU's; a
+    disagreement is printed with the CPU's router-probability margin
+    between its k-th and (k+1)-th expert."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = family_cfg(arch, PARITY_LAYERS)
+    api = get_model(cfg)
+    card = api.init(0, device=dev)
+    cpu = _map(lambda t: t.cpu(), card)
+    b, gen = FAMILY_BATCH, FAMILY_GEN
+    batch = serve.make_batch(cfg, np.random.default_rng(1), b,
+                             family_prompt(cfg), "cpu")
+    tag = f"transformer_family parity {cfg.name}"
+    t0 = time.perf_counter()
+    with route_recorder() as cpu_routes:
+        cpu_logits, cpu_tokens = _teacher_forced(api, cpu, batch, gen, None)
+    cpu_s = time.perf_counter() - t0
+    with route_recorder() as card_routes:
+        card_logits, card_tokens = _teacher_forced(api, card, batch, gen,
+                                                   cpu_tokens, dev)
+    errs = [check(f"{tag}: prefill logits", card_logits[0], cpu_logits[0],
+                  PARITY_PREFILL_TOL)]
+    for i in range(1, gen):
+        errs.append(check(f"{tag}: decode step {i} logits", card_logits[i],
+                          cpu_logits[i], PARITY_DECODE_TOL))
+    out = {"arch": cfg.name, "layers": PARITY_LAYERS, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "batch": b, "steps": gen,
+           "prefill_max_abs_err": errs[0],
+           "decode_max_abs_err": max(errs[1:]),
+           "greedy_tokens_agree": int((card_tokens == cpu_tokens).sum()),
+           "greedy_tokens_total": int(cpu_tokens.numel()),
+           "cpu_seconds": cpu_s}
+    if cfg.moe is not None:
+        # the prefill's calls, one a layer, then one a layer a step
+        k = cfg.moe.top_k
+        pairs = list(zip(cpu_routes.calls, card_routes.calls))
+        require(f"{tag}: {len(pairs)} router calls",
+                len(pairs) == PARITY_LAYERS * gen)
+        prefill, differ = pairs[:PARITY_LAYERS], []
+        for layer, ((probs, ids), (_, card_ids)) in enumerate(prefill):
+            for pos in (ids != card_ids).any(-1).nonzero().tolist():
+                top = torch.sort(probs[tuple(pos)], descending=True,
+                                 stable=True).values
+                differ.append({"layer": layer, "position": pos,
+                               "margin": float(top[k - 1] - top[k])})
+        require(f"{tag}: router top-k ids differ on the card: {differ}",
+                not differ)
+        out["router_ids_equal"] = not differ
+        out["router_disagreements"] = differ
+        out["router_choices_compared"] = sum(ids.numel()
+                                             for (_, ids), _ in prefill)
+    del card, cpu
+    return out
+
+
+def family_finetune(arch: str, layers, rounds: int, dev) -> tuple:
+    """``train.train_rounds`` (the fine-tuning entry point's round loop)
+    at published width with ``layers`` kept: 4 clients of 4 × 128
+    tokens, K = 2, HiCS at T = 0.01, sgd lr 0.05, 1 epoch, the counts
+    set to 0 just before and read just after.  The selects after round
+    0 refresh the cache through fused_stats and the arccos strip.  Then
+    the share of dropped (token, expert) pairs of one client's loss on
+    the final params, and the selection replayed on the CPU from the
+    card's Δb (the same participants every round).  Returns (its
+    record, its launches)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = family_cfg(arch, layers)
+    api = get_model(cfg)
+    toks, _ = make_lm_streams(np.random.default_rng(0), cfg.vocab_size,
+                              FT_SEQ_LEN + 1, FT_CLIENTS, FT_SEQS,
+                              [0.05, 0.05, 0.05, 5.0])
+    toks = torch.as_tensor(toks, device=dev)
+    params = api.init(0, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    classes = head_num_classes(params) or 1
+    sel = make_selector("hics", num_clients=FT_CLIENTS,
+                        num_select=FT_SELECT, total_rounds=rounds,
+                        temperature=T_LM, num_classes=classes, seed=0,
+                        device=dev)
+    rec: list = []
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    params, hist = train.train_rounds(api, params, toks, sel, rounds=rounds,
+                                      lr=0.05, epochs=1, record=rec)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kbuild.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    tag = f"transformer_family finetune {cfg.name}"
+    for name in ("fused_stats", "gram_update"):
+        require(f"{tag}: {name} was not launched", launches[name] > 0)
+    require(f"{tag}: fused_stats launches differ from the strip's",
+            launches["fused_stats"] == launches["gram_update"] == rounds - 1)
+    require(f"{tag}: non-finite loss", bool(np.isfinite(hist["loss"]).all()))
+    seq = toks[0, 0]
+    with torch.no_grad():
+        _, metrics = api.loss(params, {"tokens": seq[None, :-1],
+                                       "targets": seq[None, 1:]})
+    steps = FT_SELECT * FT_SEQS
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": n_params, "weights_gb": 4 * n_params / 1e9,
+           "clients": FT_CLIENTS, "select": FT_SELECT, "rounds": rounds,
+           "seq_len": FT_SEQ_LEN, "seconds": seconds,
+           "ms_per_local_step": [r["local_s"] / steps * 1e3 for r in rec],
+           "selected": hist["selected"], "loss": hist["loss"],
+           "delta_b_shape": list(rec[0]["delta_b"].shape),
+           "moe_frac_dropped": float(metrics["moe_frac_dropped"]),
+           "peak_memory_gb": peak / 1e9, "launches": launches,
+           "cpu_replay": lm_replay(rec, sel, FT_CLIENTS, FT_SELECT, rounds,
+                                   classes, tag)}
+    del params, sel, rec
+    return out, launches
+
+
+def family_serve_batched() -> tuple:
+    """``repro_torch.examples.serve_batched`` with mixtral-8x22b, as the
+    reference runs it (reduced), the counts set to 0 just before."""
+    kbuild.reset_launches()
+    res = serve_batched.main(["--arch", "mixtral-8x22b"])
+    torch.cuda.synchronize()
+    launches = dict(kbuild.launches)
+    tag = "transformer_family serve_batched"
+    require(f"{tag}: decode_attention was not launched",
+            launches["decode_attention"] > 0)
+    require(f"{tag}: kernel check {res['kernel_max_abs_err']} > 5e-5",
+            res["kernel_max_abs_err"] <= 5e-5)
+    require(f"{tag}: tokens of the wrong shape",
+            tuple(res["tokens"].shape) == (4, 24))
+    return {"arch": res["cfg"].name,
+            "decode_ms_per_token": res["decode_ms_per_token"],
+            "kernel_check_max_abs_err": res["kernel_max_abs_err"],
+            "first_request_tokens": res["tokens"][0].tolist(),
+            "launches": launches}, launches
+
+
+def transformer_family_phase(dev) -> dict:
+    """The rest of the transformer family on the card: each arch served
+    at published width (:data:`FAMILY_SERVE`), mixtral and granite-moe
+    fine-tuned (:data:`FAMILY_FT`), the two-layer cuts of granite-moe,
+    gemma and pixtral against the port's CPU run, and the serve_batched
+    example.  Returns the launches summed over the serve, fine-tune and
+    example runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    total: dict = {}
+    out = {"phase": "transformer_family", "card": CARD, "serve": [],
+           "finetune": [], "parity": []}
+    for arch, layers in FAMILY_SERVE:
+        rec, n = family_serve(arch, layers, dev)
+        _add(total, n)
+        out["serve"].append(rec)
+    for arch, layers, rounds in FAMILY_FT:
+        rec, n = family_finetune(arch, layers, rounds, dev)
+        _add(total, n)
+        out["finetune"].append(rec)
+    for arch in FAMILY_PARITY:
+        out["parity"].append(family_parity(arch, dev))
+    out["serve_batched"], n = family_serve_batched()
+    _add(total, n)
+    out.update({"launches": total, "seconds": time.perf_counter() - t0})
+    emit(out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -2256,21 +2619,21 @@ def lm_telemetry(path, hist) -> dict:
             "participation": back["fairness/participation"].tolist()}
 
 
-def lm_replay(rec: list, card_sel) -> dict:
+def lm_replay(rec: list, card_sel, clients=LM_CLIENTS, select=LM_SELECT,
+              rounds=LM_ROUNDS, classes=151_936, tag="lm_train") -> dict:
     """The card run's selection replayed on the CPU with the plain
     versions: a CPU shim of the same seed draws the same noise; each
     round it selects, then observes the card's ids and Δb.  It must
     pick the card's participants every round; its Ĥ is printed beside
     the card's."""
-    cpu = make_selector("hics", num_clients=LM_CLIENTS,
-                        num_select=LM_SELECT, total_rounds=LM_ROUNDS,
-                        temperature=T_LM, num_classes=151_936, seed=0,
-                        device="cpu")
+    cpu = make_selector("hics", num_clients=clients, num_select=select,
+                        total_rounds=rounds, temperature=T_LM,
+                        num_classes=classes, seed=0, device="cpu")
     same = []
     for t, r in enumerate(rec):
         same.append(cpu.select(t) == r["ids"])
         cpu.update(t, r["ids"], bias_updates=r["delta_b"])
-    require(f"lm_train: the CPU replay's participants differ: {same}",
+    require(f"{tag}: the CPU replay's participants differ: {same}",
             all(same))
     ent_cpu = torch.tensor(cpu.estimated_entropies())
     ent_card = torch.tensor(card_sel.estimated_entropies())
@@ -2445,7 +2808,7 @@ def finetune_example_phase(dev) -> dict:
 
 SWEEP = SweepSpec(
     scenarios=("mixed_80_20", "dir_severe", "flaky_severe", "diurnal_mixed"),
-    selectors=("hics", "cs"), seeds=(0, 1, 2, 3), arch="paper-cnn",
+    selectors=("hics", "cs"), seeds=(0, 1), arch="paper-cnn",
     num_clients=50, num_select=5, rounds=ROUNDS, cap=800,
     samples_train=10_000, samples_test=2_000, selector_kw=SELECTOR_KW,
     local=SPEC.local, data=SPEC.data)
@@ -2978,7 +3341,7 @@ def telemetry_async(graph_srv, dev) -> tuple:
 
 
 def telemetry_sweep(dev) -> tuple:
-    """``run_sweep`` over :data:`TEL_SCENARIOS` × hics × 4 seeds with the
+    """``run_sweep`` over :data:`TEL_SCENARIOS` × hics × 2 seeds with the
     sync groups: one capture a cell, fields (S, T, ...), each seed's
     fields bit-equal to its server's own scanned run."""
     spec = dataclasses.replace(SWEEP, scenarios=TEL_SCENARIOS,
@@ -3154,7 +3517,7 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     alone = ("graph_rounds", "lm_train", "local_algos", "finetune_example",
-             "scenarios", "telemetry")
+             "scenarios", "telemetry", "transformer_family")
     if argv and (len(argv) > 1 or argv[0] not in alone):
         print(f"usage: chip_smoke.py [{' | '.join(alone)}]", file=sys.stderr)
         return 2
@@ -3183,7 +3546,10 @@ def main(argv) -> int:
          "local_algos": lambda: local_algos_phase(dev),
          "finetune_example": lambda: finetune_example_phase(dev),
          "scenarios": lambda: scenarios_phase(dev),
-         "telemetry": lambda: telemetry_phase(dev)}[argv[0]]()
+         "telemetry": lambda: telemetry_phase(dev),
+         "transformer_family": lambda: (serve_kernels_phase(dev),
+                                        transformer_family_phase(dev))
+         }[argv[0]]()
         for f in failures:
             print("FAILED:", f, file=sys.stderr)
         return 1 if failures else 0
@@ -3206,6 +3572,7 @@ def main(argv) -> int:
     res, serve_launches = serve_phase(dev)
     serve_parity_phase(res, dev)
     del res
+    family_launches = transformer_family_phase(dev)
     lm_launches = lm_train_phase(dev)
     ft_launches = finetune_example_phase(dev)
     scn_launches, scn_epilogues = scenarios_phase(dev)
@@ -3259,6 +3626,12 @@ def main(argv) -> int:
         "bound_by", "gemm_device_ms", "max_abs_err")} for c in pair_timed]
     kernels[3]["wide"] = [{key: serve_cases["hetero_entropy"][3][key]
                            for key in keys}]
+    # the decode kernel at dh 256, gemma's serve shape, f32 and bf16
+    kernels[4]["dh256"] = [
+        {key: c[key] for key in keys + ("bound_by", "library_ms",
+                                        "max_abs_err")}
+        for c in serve_cases["decode_attention"]
+        if "dh256,S512" in c["case"] and "ms" in c]
     # the strip kernel per epilogue: its launches on its own path and
     # its timed case at that path's shape (arccos: the slice's K5×N50×
     # C10; cosine and l2: the baselines' K5×N50×F158,570)
@@ -3298,6 +3671,8 @@ def main(argv) -> int:
         kern["launches_scenarios"] = scn_launches[kern["name"]]
         # phase telemetry: the graph driver's run with telemetry on
         kern["launches_telemetry"] = tel_launches[kern["name"]]
+        # phase transformer_family: its serves, fine-tunes and example
+        kern["launches_transformer_family"] = family_launches[kern["name"]]
     strip["launches_scenarios_by_epilogue"] = scn_epilogues
     # the arccos strip at the LM fine-tune's K2×N8×C151,936
     strip["lm_path"] = {key: lm_strip[key] for key in keys + (

@@ -6,8 +6,10 @@ of ``repro``): :class:`ModelConfig` with its sub-configs,
 assigned input shapes, and ``register`` / ``get_config``.  Each
 ``<arch>.py`` module of this package registers the configs the port
 runs: paper-cnn and paper-mlp (the HiCS-FL slice), qwen2.5-3b (the
-serving slice and LM fine-tuning) and qwen3-8b (LM fine-tuning's
-default arch).
+serving slice and LM fine-tuning), qwen3-8b (LM fine-tuning's default
+arch), and the rest of the decoder-only transformer family: gemma-7b
+and deepseek-coder-33b (dense), granite-moe-1b-a400m and mixtral-8x22b
+(MoE), pixtral-12b (the VLM prefix).
 """
 from __future__ import annotations
 
@@ -90,7 +92,7 @@ class ModelConfig:
     scale_embeddings: bool = False   # multiply embeddings by sqrt(d_model)
     # HiCS-FL head option: the estimator reads Δb of the head
     lm_head_bias: bool = True
-    # sub-configs (the port's model registry refuses them: not ported)
+    # sub-configs (the port runs moe and vlm; the others raise)
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
@@ -186,9 +188,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 #: the archs the reference registers and the port does not run yet
-NOT_PORTED_ARCHS = ("deepseek-coder-33b", "gemma-7b", "granite-moe-1b-a400m",
-                    "mixtral-8x22b", "pixtral-12b", "rwkv6-3b",
-                    "seamless-m4t-medium", "zamba2-7b")
+NOT_PORTED_ARCHS = ("rwkv6-3b", "seamless-m4t-medium", "zamba2-7b")
 
 
 def get_config(name: str) -> ModelConfig:

@@ -94,6 +94,18 @@ __device__ __forceinline__ void copy_wait() {
 }
 
 // E consecutive values of a staged row -> f32 registers.
+__device__ __forceinline__ void load_row(const float* p, float (&r)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 c = *reinterpret_cast<const float4*>(p + 4);
+  r[0] = a.x;
+  r[1] = a.y;
+  r[2] = a.z;
+  r[3] = a.w;
+  r[4] = c.x;
+  r[5] = c.y;
+  r[6] = c.z;
+  r[7] = c.w;
+}
 __device__ __forceinline__ void load_row(const float* p, float (&r)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
   r[0] = t.x;
@@ -107,6 +119,18 @@ __device__ __forceinline__ void load_row(const float* p, float (&r)[2]) {
   r[1] = t.y;
 }
 // bf16 -> f32 is exact: the bf16 bits are the top half of the f32.
+__device__ __forceinline__ void load_row(const uint16_t* p, float (&r)[8]) {
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  const unsigned hi = 0xffff0000u;
+  r[0] = __uint_as_float(w.x << 16);
+  r[1] = __uint_as_float(w.x & hi);
+  r[2] = __uint_as_float(w.y << 16);
+  r[3] = __uint_as_float(w.y & hi);
+  r[4] = __uint_as_float(w.z << 16);
+  r[5] = __uint_as_float(w.z & hi);
+  r[6] = __uint_as_float(w.w << 16);
+  r[7] = __uint_as_float(w.w & hi);
+}
 __device__ __forceinline__ void load_row(const uint16_t* p, float (&r)[4]) {
   const uint2 w = *reinterpret_cast<const uint2*>(p);
   const unsigned hi = 0xffff0000u;
@@ -445,8 +469,9 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   return static_cast<int>(cudaGetLastError());
 }
 
-// G padded to GP in {2, 4, 8, 16}; dh = 32·E in {64, 128}; GP·E <= 32
-// (q and the accumulators stay in registers).
+// G padded to GP in {2, 4, 8, 16}; dh = 32·E in {64, 128, 256}; GP·E <= 32
+// (q and the accumulators stay in registers).  At dh 256 the f32 ring is
+// 192 KB, so an SM holds one block of it (bf16: two).
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v,
              const void* lengths, void* out, void* ws, int b, int s_len,
@@ -471,6 +496,12 @@ int dispatch(const void* q, const void* k, const void* v,
       default: DECODE_LAUNCH(8, 4);
     }
   }
+  if (g >= 1 && g <= 4 && dh == 256) {
+    switch (gp) {
+      case 2: DECODE_LAUNCH(2, 8);
+      default: DECODE_LAUNCH(4, 8);
+    }
+  }
 #undef DECODE_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -480,7 +511,7 @@ int dispatch(const void* q, const void* k, const void* v,
 // q (b, kv·g, dh) f32; k, v (b, s_len, kv, dh) f32 (bf16 == 0) or bf16;
 // lengths (b,) int32; out (b, kv·g, dh) f32; ws the splits' partials,
 // (b·kv·splits, g·(dh + 2)) f32, unused (may be null) when splits == 1.
-// dh 64 or 128, g <= 1024 / dh (the wrapper checks), every pointer
+// dh 64, 128 or 256, GP·dh <= 1024 (the wrapper checks), every pointer
 // 16-byte aligned, 1 <= splits <= ceil(s_len / 32).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* lengths,

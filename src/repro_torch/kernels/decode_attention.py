@@ -40,7 +40,7 @@ MIN_SPLIT_TILES = 2
 #: the share of whole waves the blocks must fill before more splits
 #: stop paying for themselves
 WAVE_FILL = 0.9
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 #: G·dh the registers hold (q and the accumulators, 32 floats a lane)
 MAX_GROUP_WIDTH = 1024
 

@@ -10,7 +10,9 @@ Usage (flags as the reference's ``repro.launch.serve``, plus --device):
 
 The default device is ``cuda``: without a card it raises.  Weights come
 from a generator on the device seeded by --seed; prompts from numpy's
-``default_rng(seed)``, as in the reference.
+``default_rng(seed)``, as in the reference.  A VLM's prompt is its
+``num_patches`` patch embeddings then prompt-len − P tokens; an audio
+(encoder-decoder) arch is not ported.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch.backend import resolve_device, set_precision
 from repro_torch.configs import get_config
+from repro_torch.core.selectors.functional import LM_SUBSTRATE, not_ported
 from repro_torch.kernels import gqa_decode_attention
 from repro_torch.kernels.ref import decode_attention_ref
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
@@ -35,20 +38,40 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(api, params, tokens: torch.Tensor, gen: int) -> dict:
-    """Prefill ``tokens`` (B, S) and decode greedily to ``gen`` tokens a
-    request.  Returns the tokens (B, gen), the cache, its valid length
-    and host-clock times that end in a device synchronize."""
-    dev = tokens.device
+def make_batch(cfg, rng, batch: int, prompt_len: int, device) -> dict:
+    """A prompt batch as the reference's serve driver draws it from
+    ``rng``: tokens (B, S), or for a VLM patch embeddings (B, P,
+    patch_embed_dim) then tokens (B, S − P)."""
+    def ints(*shape):
+        return torch.tensor(rng.integers(0, cfg.vocab_size, shape),
+                            dtype=torch.int32, device=device)
+
+    if cfg.kind == "vlm":
+        p = cfg.vlm.num_patches
+        patches = torch.tensor(
+            rng.normal(size=(batch, p, cfg.vlm.patch_embed_dim)),
+            dtype=torch.float32, device=device)
+        return {"patches": patches, "tokens": ints(batch, prompt_len - p)}
+    if cfg.kind == "audio":
+        raise not_ported("kind", cfg.kind, LM_SUBSTRATE)
+    return {"tokens": ints(batch, prompt_len)}
+
+
+def generate(api, params, batch: dict, gen: int) -> dict:
+    """Prefill ``batch`` ({'tokens': (B, S)}, a VLM's with 'patches')
+    and decode greedily to ``gen`` tokens a request.  Returns the
+    tokens (B, gen), the cache, its valid length and host-clock times
+    that end in a device synchronize."""
+    dev = batch["tokens"].device
     prefill = make_prefill_step(api, cache_extra=gen)
     serve = make_serve_step(api)
     _sync(dev)
     t0 = time.perf_counter()
-    token, cache = prefill(params, {"tokens": tokens})
+    token, cache = prefill(params, batch)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     out = [token]
-    pos = tokens.shape[1]
+    pos = cache["k"].shape[2] - gen      # the prompt's positions, P + S
     t0 = time.perf_counter()
     for _ in range(gen - 1):
         token, cache = serve(params, cache, {"token": token, "pos": pos})
@@ -104,9 +127,8 @@ def main(argv=None) -> dict:
     init_s = time.perf_counter() - t0
 
     b, s = args.batch, args.prompt_len
-    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (b, s)),
-                          dtype=torch.int32, device=device)
-    res = generate(api, params, tokens, args.gen)
+    res = generate(api, params, make_batch(cfg, rng, b, s, device),
+                   args.gen)
     res.update(cfg=cfg, params=params, init_s=init_s,
                kernel_max_abs_err=decode_kernel_check(cfg, b, rng, device))
     dev_name = (torch.cuda.get_device_name(device) if device.type == "cuda"

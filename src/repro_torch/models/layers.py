@@ -1,10 +1,10 @@
 """Layers of the decoder LM: initializers, norms, RoPE, attention
 (prefill and decode), the KV-cache write and the MLPs.
 
-A port of the reference's ``models/layers.py`` with only what a dense
-decoder needs (cross-attention is not ported).  Params are nested dicts
-of tensors, in the reference's layouts: (d_in, d_out) weights, heads
-split last, caches (B, S, KV, dh).  Init functions take a ``lead``
+A port of the reference's ``models/layers.py`` with what the
+decoder-only transformer needs (cross-attention is not ported).
+Params are nested dicts of tensors, in the reference's layouts:
+(d_in, d_out) weights, heads split last, caches (B, S, KV, dh).  Init functions take a ``lead``
 shape that is prepended to every tensor, so that the transformer can
 stack its layers on a leading axis as the reference's vmapped init
 does.
@@ -31,13 +31,15 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 
-def dense_init(gen: torch.Generator, shape):
-    """Truncated normal on [-2, 2] times 1/sqrt(fan_in), fan_in =
-    shape[-2], drawn on the generator's device."""
+def dense_init(gen: torch.Generator, shape, scale: float | None = None):
+    """Truncated normal on [-2, 2] times ``scale`` (default
+    1/sqrt(fan_in), fan_in = shape[-2]), drawn on the generator's
+    device."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = 1.0 / math.sqrt(fan_in) if scale is None else scale
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return t.mul_(1.0 / math.sqrt(fan_in))
+    return t.mul_(std)
 
 
 def embed_init(gen: torch.Generator, shape):

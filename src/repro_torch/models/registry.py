@@ -7,9 +7,9 @@ covers, as the reference's ``models/registry.py``.
   logits, cache = api.prefill(params, {"tokens": tokens}, cache_extra=n)
   logits, cache = api.decode_step(params, cache, {"token": t, "pos": p})
 
-Only ``kind == "dense"`` is ported; MoE, VLM, SSM, hybrid and
-encoder-decoder configs raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+The decoder-only transformer kinds (dense, moe, vlm) are ported; SSM,
+hybrid and encoder-decoder (audio) configs raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -70,7 +70,7 @@ def get_model(cfg_or_name) -> ModelApi:
     if cfg.kind == "classifier":
         raise ValueError("classifier models use "
                          "repro_torch.models.classifier")
-    if cfg.kind != "dense":
+    if cfg.kind not in ("dense", "moe", "vlm"):
         raise not_ported("kind", cfg.kind, LM_SUBSTRATE)
-    TF.require_dense(cfg)
+    TF.require_ported(cfg)
     return _transformer_api(cfg)

@@ -1,18 +1,25 @@
-"""Decoder-only transformer LM, the dense case: init, forward, the
-training loss, prefill and one-token decode against a bf16 KV cache.
+"""Decoder-only transformer LM covering the dense, MoE and VLM configs:
+init, forward, the training loss, prefill and one-token decode against
+a bf16 KV cache.
 
-A port of the reference's ``models/transformer.py`` for configs of
-``kind == "dense"``; the MoE and VLM branches are not ported and raise.
+A port of the reference's ``models/transformer.py``.  A config with an
+SSM, RWKV, hybrid or encoder-decoder part is not ported and raises.
 Layers are stacked on a leading axis as in the reference (its vmapped
 init), and run in a Python loop over that axis in place of ``lax.scan``:
 each stacked leaf is split once a forward (``torch.unbind``), whose
 backward is one ``stack``, where indexing each layer would write a
-zero-filled gradient of the whole stacked leaf per layer.  Compute is
-f32; the cache is bf16, as the reference's ``prefill`` and serve path
-keep it.  Unlike the reference, ``decode_step`` writes the new token's
-K/V into the cache tensors in place (no copy of the cache per token)
-and returns the same dict.  The reference's ``jax.checkpoint`` of each
-layer does not change the numbers; the port keeps the activations.
+zero-filled gradient of the whole stacked leaf per layer.  A MoE
+config's layers take ``models/moe.py``'s block in place of the MLP,
+and its per-layer aux terms are stacked over the layers as the scan
+stacks them.  A VLM config projects a batch's ``patches`` (B, P,
+patch_embed_dim) to d_model and prepends them to the tokens, so the
+positions run over P + S; the loss reads the text positions only.
+Compute is f32; the cache is bf16, as the reference's ``prefill`` and
+serve path keep it.  Unlike the reference, ``decode_step`` writes the
+new token's K/V into the cache tensors in place (no copy of the cache
+per token) and returns the same dict.  The reference's
+``jax.checkpoint`` of each layer does not change the numbers; the port
+keeps the activations.
 """
 from __future__ import annotations
 
@@ -21,13 +28,15 @@ import torch
 
 from repro_torch.core.selectors.functional import LM_SUBSTRATE, not_ported
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.losses import chunked_lm_loss
 
-_NOT_PORTED = ("moe", "vlm", "ssm", "rwkv", "hybrid", "encdec")
+_NOT_PORTED = ("ssm", "rwkv", "hybrid", "encdec")
 
 
-def require_dense(cfg) -> None:
-    """Raise for a config the port's LM does not cover yet."""
+def require_ported(cfg) -> None:
+    """Raise for a config part the port's transformer does not cover
+    yet (MoE and VLM configs pass)."""
     for name in _NOT_PORTED:
         if getattr(cfg, name) is not None:
             raise not_ported(name, getattr(cfg, name), LM_SUBSTRATE)
@@ -63,15 +72,18 @@ def cache_geometry(cfg, seq_len: int, long_context: bool):
 
 def init_params(gen: torch.Generator, cfg) -> dict:
     """Random params on ``gen``'s device, layers stacked on axis 0."""
-    require_dense(cfg)
+    require_ported(cfg)
     dev, d = gen.device, cfg.d_model
     lead = (cfg.num_layers,)
     layers = {
         "ln1": L.init_norm(d, cfg.norm, lead, device=dev),
         "attn": L.init_attention(gen, cfg, lead),
         "ln2": L.init_norm(d, cfg.norm, lead, device=dev),
-        "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.mlp, lead),
     }
+    if cfg.moe is not None:
+        layers["moe"] = MOE.init_moe(gen, d, cfg.d_ff, cfg.moe, lead)
+    else:
+        layers["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.mlp, lead)
     params = {
         "embed": L.embed_init(gen, (cfg.vocab_size, d)),
         "layers": layers,
@@ -84,6 +96,10 @@ def init_params(gen: torch.Generator, cfg) -> dict:
         head["b"] = torch.zeros(cfg.vocab_size, device=dev)
     if head:
         params["lm_head"] = head
+    if cfg.vlm is not None:
+        params["projector"] = {
+            "w": L.dense_init(gen, (cfg.vlm.patch_embed_dim, d)),
+            "b": torch.zeros(d, device=dev)}
     return params
 
 
@@ -123,8 +139,16 @@ def _logits(params, x, cfg):
 def _embed(params, tokens, cfg):
     x = params["embed"][tokens.long()]
     if cfg.scale_embeddings:
-        x = x * cfg.d_model ** 0.5
+        # √d_model rounded to f32 first, as jnp.asarray(d ** 0.5, f32)
+        x = x * float(np.float32(cfg.d_model ** 0.5))
     return x
+
+
+def _ffn(lp, h, cfg):
+    """The layer's MLP, or its MoE block: (out, aux or None)."""
+    if cfg.moe is not None:
+        return MOE.moe_block(lp["moe"], h, cfg.moe, cfg.mlp)
+    return L.mlp_block(lp["mlp"], h, cfg.mlp), None
 
 
 def _layer_apply(lp, x, cfg, q_chunk):
@@ -133,19 +157,35 @@ def _layer_apply(lp, x, cfg, q_chunk):
                               window=cfg.sliding_window, q_chunk=q_chunk)
     x = x + a
     h = L.apply_norm(x, lp["ln2"], cfg.norm)
-    return x + L.mlp_block(lp["mlp"], h, cfg.mlp), kv
+    m, aux = _ffn(lp, h, cfg)
+    return x + m, kv, aux
 
 
-def forward(params, tokens, cfg, *, q_chunk: int = 128):
-    """Full-span f32 forward over tokens (B, T).  Returns (hidden
-    (B, T, d) after the final norm, [(k, v) of each layer])."""
-    require_dense(cfg)
+def forward(params, tokens, cfg, *, extra_embeds=None, q_chunk: int = 128):
+    """Full-span f32 forward over tokens (B, T), after the projected
+    ``extra_embeds`` (B, P, patch_embed_dim) if given (VLM).  Returns
+    (hidden (B, P + T, d) after the final norm, [(k, v) of each layer],
+    the MoE aux terms stacked over the layers or None)."""
+    require_ported(cfg)
     x = _embed(params, tokens, cfg)
-    kvs = []
+    if extra_embeds is not None:
+        proj = params["projector"]
+        pref = extra_embeds.to(x.dtype) @ proj["w"] + proj["b"]
+        x = torch.cat([pref, x], dim=1)
+    kvs, auxs = [], []
     for lp in unstack_layers(params["layers"], cfg.num_layers):
-        x, kv = _layer_apply(lp, x, cfg, q_chunk)
+        x, kv, aux = _layer_apply(lp, x, cfg, q_chunk)
         kvs.append(kv)
-    return L.apply_norm(x, params["final_norm"], cfg.norm), kvs
+        auxs.append(aux)
+    aux = (None if cfg.moe is None else
+           {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]})
+    return L.apply_norm(x, params["final_norm"], cfg.norm), kvs, aux
+
+
+def _patches(batch, cfg):
+    """The batch's patch embeddings if the config is a VLM (others
+    ignore them, as the reference does)."""
+    return batch.get("patches") if cfg.vlm is not None else None
 
 
 # ---------------------------------------------------------------------------
@@ -156,24 +196,28 @@ def forward(params, tokens, cfg, *, q_chunk: int = 128):
 def loss_fn(params, batch, cfg, *, dtype=torch.float32, q_chunk: int = 128,
             loss_chunk: int = 512):
     """The LM loss of ``batch`` {'tokens', 'targets' (B, S), optional
-    'loss_mask'}: the f32 forward, then the chunked cross-entropy of
-    the head.  Returns (loss, {ce_loss, accuracy, tokens, loss}).  A
-    compute dtype other than f32, a 'patches' input and MoE configs are
-    not ported."""
+    'loss_mask', and 'patches' for a VLM}: the f32 forward, then the
+    chunked cross-entropy of the head over the text positions, plus a
+    MoE config's aux losses.  Returns (loss, {ce_loss, accuracy, tokens,
+    loss} and, for MoE, moe_frac_dropped averaged over the layers).  A
+    compute dtype other than f32 is not ported."""
     if dtype != torch.float32:
         raise not_ported("dtype", dtype, LM_SUBSTRATE)
-    if batch.get("patches") is not None:
-        raise not_ported("patches", "(VLM prefix)", LM_SUBSTRATE)
-    if cfg.moe is not None:
-        raise not_ported("moe", cfg.moe, LM_SUBSTRATE)
-    targets = batch["targets"]
+    tokens, targets = batch["tokens"], batch["targets"]
     mask = batch.get("loss_mask")
-    x, _ = forward(params, batch["tokens"], cfg, q_chunk=q_chunk)
+    extra = _patches(batch, cfg)
+    x, _, aux = forward(params, tokens, cfg, extra_embeds=extra,
+                        q_chunk=q_chunk)
+    if extra is not None:
+        x = x[:, -tokens.shape[1]:, :]     # loss over text positions only
     if mask is None:
         mask = torch.ones(targets.shape, device=x.device)
     w, b = head_weights(params, cfg)
     loss, metrics = chunked_lm_loss(x, w, b, targets, mask,
                                     chunk=loss_chunk)
+    if aux is not None:
+        loss = loss + aux["moe_lb_loss"].sum() + aux["moe_z_loss"].sum()
+        metrics["moe_frac_dropped"] = aux["moe_frac_dropped"].mean()
     metrics["loss"] = loss
     return loss, metrics
 
@@ -202,9 +246,12 @@ def _pad_cache_seq(k, extra: int):
 
 
 def prefill(params, batch, cfg, *, cache_extra: int = 0):
-    """Forward over a prompt {'tokens': (B, T)}; returns (last-token
-    logits (B, 1, V) f32, bf16 cache with ``cache_extra`` free slots)."""
-    x, kvs = forward(params, batch["tokens"], cfg)
+    """Forward over a prompt {'tokens': (B, T)} (a VLM's after its
+    'patches' (B, P, ·): the cache then holds P + T positions); returns
+    (last-token logits (B, 1, V) f32, bf16 cache with ``cache_extra``
+    free slots)."""
+    x, kvs, _ = forward(params, batch["tokens"], cfg,
+                        extra_embeds=_patches(batch, cfg))
     logits = _logits(params, x[:, -1:, :], cfg)
     cache = {name: _pad_cache_seq(
         torch.stack([kv[j] for kv in kvs]).to(torch.bfloat16), cache_extra)
@@ -217,7 +264,7 @@ def decode_step(params, cache, batch, cfg, *, window: int = 0,
     """One-token decode.  batch: {'token': (B, 1), 'pos': int}.  Writes
     the token's K/V into ``cache`` in place; returns (logits (B, 1, V)
     f32, cache)."""
-    require_dense(cfg)
+    require_ported(cfg)
     token, pos = batch["token"], int(batch["pos"])
     x = _embed(params, token, cfg)
     layers = unstack_layers(params["layers"], cfg.num_layers)
@@ -228,6 +275,6 @@ def decode_step(params, cache, batch, cfg, *, window: int = 0,
             window=window, ring=ring)
         y = x + a
         h = L.apply_norm(y, lp["ln2"], cfg.norm)
-        x = y + L.mlp_block(lp["mlp"], h, cfg.mlp)
+        x = y + _ffn(lp, h, cfg)[0]
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     return _logits(params, x, cfg), cache

@@ -467,12 +467,13 @@ def test_decode_splits_cover_every_tile_once():
 
 
 def test_decode_split_plain_vs_pallas():
-    """The split plain version at G in {1, 2, 8}, dh in {64, 128}, f32
+    """The split plain version at G in {1, 2, 8}, dh in {64, 128, 256}, f32
     and bf16 K/V with an f32 q, P in {1, 2, 3, 8}: within 5e-5 absolute
     and relative of the Pallas kernel in interpret mode and of the
     unsplit plain version (both sides read the same K/V values in f32;
     only the order of the sums differs)."""
-    each(_split_case, [1, 2, 8], [64, 128], [jnp.float32, jnp.bfloat16])
+    each(_split_case, [1, 2, 8], [64, 128, 256],
+         [jnp.float32, jnp.bfloat16])
 
 
 def _split_case(g, dh, dtype):

@@ -52,7 +52,7 @@ from repro.optim import adam as jax_adam
 from repro.optim import clip_by_global_norm as jax_clip
 from repro_torch import checkpoint as tckpt
 from repro_torch.configs import get_config
-from repro_torch.configs.base import MoEConfig
+from repro_torch.configs.base import SSMConfig
 from repro_torch.core import SELECTORS, make_selector
 from repro_torch.core.selectors import draw_select_noise
 from repro_torch.data import make_lm_streams
@@ -172,11 +172,14 @@ def test_loss_fn_unported_options_raise():
     item = "queue 1: the rest of the LM substrate"
     with pytest.raises(NotImplementedError, match=item):
         tapi.loss(tp, tb, dtype=torch.bfloat16)
+    # patches on a config without a VLM prefix are ignored, as in the
+    # reference; an SSM or RWKV part is not ported
+    want, _ = tapi.loss(tp, tb)
+    got, _ = tapi.loss(tp, dict(tb, patches=torch.zeros(1, 2, 8)))
+    assert torch.equal(got, want)
+    ssm_cfg = dataclasses.replace(tapi.cfg, ssm=SSMConfig())
     with pytest.raises(NotImplementedError, match=item):
-        tapi.loss(tp, dict(tb, patches=torch.zeros(1, 2, 8)))
-    moe_cfg = dataclasses.replace(tapi.cfg, moe=MoEConfig())
-    with pytest.raises(NotImplementedError, match=item):
-        loss_fn(tp, tb, moe_cfg)
+        loss_fn(tp, tb, ssm_cfg)
 
 
 def _tree(rng, scale=1.0):

@@ -168,7 +168,7 @@ def test_greedy_generation_matches_jax():
                               {"token": token,
                                "pos": jnp.asarray(s + i, jnp.int32)})
         want.append(np.asarray(token))
-    got = serve.generate(tapi, tparams, torch.tensor(toks), gen)
+    got = serve.generate(tapi, tparams, {"tokens": torch.tensor(toks)}, gen)
     assert np.array_equal(got["tokens"].numpy(),
                           np.concatenate(want, axis=1))
     assert got["length"] == s + gen - 1
@@ -261,10 +261,12 @@ def test_non_dense_configs_raise():
     does not run raises ``NotImplementedError`` naming its ROADMAP.md
     item; a name neither package registers, ``KeyError``."""
     base = get_config(ARCH).reduced()
-    from repro_torch.configs.base import MoEConfig, VLMConfig
+    from repro_torch.configs.base import EncDecConfig, HybridConfig
     item = "queue 1: the rest of the LM substrate"
-    for cfg in (dataclasses.replace(base, moe=MoEConfig()),
-                dataclasses.replace(base, vlm=VLMConfig()),
+    for cfg in (dataclasses.replace(base, kind="hybrid",
+                                    hybrid=HybridConfig()),
+                dataclasses.replace(base, kind="audio",
+                                    encdec=EncDecConfig()),
                 dataclasses.replace(base, kind="ssm")):
         with pytest.raises(NotImplementedError, match=item):
             get_model(cfg)
