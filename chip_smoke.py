@@ -63,6 +63,17 @@ granite fine-tuned through ``train.train_rounds`` with the selection
 replayed on the CPU, two-layer cuts of granite, gemma and pixtral on
 the card against the port's CPU run (the MoE router's ids among
 them), and ``repro_torch.examples.serve_batched`` with mixtral.
+Then phase ``model_families`` (``python3 chip_smoke.py model_families``
+runs it after ``serve_kernels``, whose decode cases include zamba2's
+dh 112): rwkv6-3b, zamba2-7b and seamless-m4t-medium at published
+width and depth through the serve entry point's functions (batch 4,
+prompt 64, seamless's after 64 frames, 16 greedy tokens; the decode
+kernel at zamba2's and seamless's geometry and on their live caches,
+seamless's cross cache among them; rwkv has no attention), rwkv (8
+layers) and zamba2 (36 layers, six sites) fine-tuned through
+``train.train_rounds`` with the selection replayed on the CPU,
+two-layer cuts of the three on the card against the port's CPU run
+with equal greedy tokens, and ``serve_batched`` with seamless.
 Then phase ``lm_train`` (``python3 chip_smoke.py lm_train`` alone):
 federated fine-tuning of qwen2.5-3b at full width and depth through
 ``repro_torch.launch.train`` (8 clients, K = 2, 6 rounds), its peak
@@ -1964,6 +1975,17 @@ def serve_kernels_phase(dev):
         decode.append(decode_case(4, 8, 2, 256, 512, dt, dev))
         decode.append(decode_case(3, 16, 16, 256, 512, dt, dev,
                                   lengths=[0, 1, 300]))
+    # dh 112 (E = 4 on 28 lanes): zamba2's serve shape (B4 H32 KV32
+    # S512, G 1, timed), G 2 and 8 (GP 8, the widest at dh 112), ragged
+    # lengths with a length-0 row, and one split (S 96)
+    for dt in (torch.float32, torch.bfloat16):
+        decode.append(decode_case(4, 32, 32, 112, 512, dt, dev, timed=True))
+        for g in (2, 8):
+            decode.append(decode_case(4, 2 * g, 2, 112, 512, dt, dev))
+        decode.append(decode_case(3, 32, 32, 112, 512, dt, dev,
+                                  lengths=[0, 1, 300]))
+        decode.append(decode_case(3, 4, 2, 112, 96, dt, dev,
+                                  lengths=[1, 50, 96]))
     d32k = SHAPES["decode_32k"]
     for dt in (torch.float32, torch.bfloat16):   # the bf16 layer last
         decode.append(decode_case(d32k.global_batch, h, kv, dh,
@@ -2164,7 +2186,9 @@ def _teacher_forced(api, params, prompt, gen, forced, dev="cpu"):
     batch = {k: v.to(dev) for k, v in prompt.items()}
     logits, cache = api.prefill(params, batch, cache_extra=gen)
     out, picks = [logits[:, -1].cpu()], []
-    pos = cache["k"].shape[2] - gen
+    # the prompt's positions (a recurrent cache has no sequence axis)
+    pos = (cache["k"].shape[2] - gen if "k" in cache
+           else batch["tokens"].shape[1])
     for i in range(gen):
         pick = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         picks.append(pick.cpu())
@@ -2197,10 +2221,14 @@ FT_CLIENTS, FT_SELECT, FT_SEQS, FT_SEQ_LEN = 4, 2, 4, 128
 
 
 def family_cfg(arch: str, layers=None):
+    """The arch's config, cut to ``layers`` (an encoder-decoder's
+    encoder too)."""
     cfg = get_config(arch)
     if layers is None:
         return cfg
-    return dataclasses.replace(cfg, num_layers=layers,
+    encdec = (None if cfg.encdec is None else dataclasses.replace(
+        cfg.encdec, encoder_layers=layers))
+    return dataclasses.replace(cfg, num_layers=layers, encdec=encdec,
                                name=f"{arch}-{layers}layers")
 
 
@@ -2252,13 +2280,62 @@ def family_bounds(params, cfg, b: int, positions: int, gen: int) -> dict:
                 (read + cache) / HBM_BYTES_PER_S) * 1e3}
 
 
-def family_serve(arch: str, layers, dev) -> tuple:
+def model_family_bounds(params, cfg, b: int, positions: int, gen: int,
+                        cache) -> dict:
+    """Least times of a prefill and a decode step of rwkv, the hybrid and
+    the encoder-decoder, f32 weights: the larger of the bytes (every
+    weight but the embedding read once; in decode also the cache: the
+    mean valid length of the self-attention K/V, the cross K/V whole,
+    the recurrent states read and written, the conv and token-shift
+    rows read) over the HBM rate, and 2 operations a weight a token
+    over the f32 peak: the hybrid's shared block counted once a site,
+    the encoder on the frames, the head on the last prompt position."""
+    n_head = sum(t.numel() for t in _leaves(params["lm_head"]))
+    if cfg.kind == "ssm":
+        body, enc = sum(t.numel() for t in _leaves(params["layers"])), 0
+    elif cfg.kind == "hybrid":
+        from repro_torch.models.hybrid import num_attn_sites
+        shared = sum(t.numel() for t in _leaves(params["shared"]))
+        body = (sum(t.numel() for t in _leaves(params["mamba"]))
+                + num_attn_sites(cfg) * shared
+                // cfg.hybrid.num_shared_blocks)
+        enc = 0
+    else:
+        body = sum(t.numel() for t in _leaves(params["decoder"]))
+        enc = sum(t.numel() for t in _leaves(params["encoder"]))
+    frames = cache["xk"].shape[2] if "xk" in cache else 0
+    read = _nbytes(params) - params["embed"].numel() * 4
+    mean_len = positions + gen / 2
+    cache_bytes = 0.0
+    for path in _paths(cache):
+        t = _at(cache, "/".join(path))
+        if path[-1] in ("k", "v"):
+            cache_bytes += t.numel() * t.element_size() * mean_len / t.shape[2]
+        else:
+            cache_bytes += (2 if path[-1] == "state" else 1) * (
+                t.numel() * t.element_size())
+    prefill_flops = 2 * (body * b * positions + enc * b * frames
+                         + n_head * b)
+    decode_flops = 2 * (body + n_head) * b
+    return {"prefill_bound_ms": max(prefill_flops / F32_FLOPS_PER_S,
+                                    read / HBM_BYTES_PER_S) * 1e3,
+            "decode_bound_ms_per_token": max(
+                decode_flops / F32_FLOPS_PER_S,
+                (read + cache_bytes) / HBM_BYTES_PER_S) * 1e3}
+
+
+def family_serve(arch: str, layers, dev,
+                 phase="transformer_family") -> tuple:
     """One arch through ``serve.generate`` and ``serve.decode_kernel_check``
     (the serve entry point's own functions) at published width, the
     counts set to 0 just before and read just after: batch 4, prompt 64
-    text tokens (pixtral: 128 after its 256 patches), 16 greedy tokens;
-    then the decode kernel on the live bf16 cache of the first and last
-    layer.  Returns (its record, its launches)."""
+    text tokens (pixtral: 128 after its 256 patches; seamless: 64
+    tokens after 64 frames), 16 greedy tokens; then the decode kernel
+    on the live bf16 cache of the first and last layer (zamba2: site),
+    and an encoder-decoder's on its first and last layer's cross cache
+    at its length F.  An arch with no attention (rwkv6-3b) has no
+    kernel check and no K/V cache: its decode_attention launches are
+    recorded, not required.  Returns (its record, its launches)."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2273,13 +2350,16 @@ def family_serve(arch: str, layers, dev) -> tuple:
     batch = serve.make_batch(cfg, rng, b, prompt, dev)
     kbuild.reset_launches()
     res = serve.generate(api, params, batch, FAMILY_GEN)
-    kernel_err = serve.decode_kernel_check(cfg, b, rng, dev)
+    kernel_err = (serve.decode_kernel_check(cfg, b, rng, dev)
+                  if cfg.num_heads else None)
     torch.cuda.synchronize()
     launches = dict(kbuild.launches)
-    tag = f"transformer_family serve {cfg.name}"
-    require(f"{tag}: decode_attention was not launched",
-            launches["decode_attention"] > 0)
-    require(f"{tag}: kernel check {kernel_err} > 5e-5", kernel_err <= 5e-5)
+    tag = f"{phase} serve {cfg.name}"
+    if cfg.num_heads:
+        require(f"{tag}: decode_attention was not launched",
+                launches["decode_attention"] > 0)
+        require(f"{tag}: kernel check {kernel_err} > 5e-5",
+                kernel_err <= 5e-5)
     tokens = res["tokens"]
     require(f"{tag}: tokens of the wrong shape or out of range",
             tokens.shape == (b, FAMILY_GEN) and int(tokens.min()) >= 0
@@ -2289,14 +2369,22 @@ def family_serve(arch: str, layers, dev) -> tuple:
     cache, length = res["cache"], res["length"]
     live = {}
     gq = torch.Generator(device=dev).manual_seed(7)
-    for layer in (0, cfg.num_layers - 1):
-        k, v = cache["k"][layer], cache["v"][layer]
-        q = torch.randn((b, cfg.num_heads, cfg.resolved_head_dim()),
-                        generator=gq, device=dev)
-        got = ops.gqa_decode_attention(q, k, v, length, device=dev)
-        live[f"layer{layer}"] = check(
-            f"{tag}: live cache layer {layer}", got,
-            ref.decode_attention_ref(q, k, v, length), 5e-5, 5e-5)
+    unit = "site" if cfg.hybrid is not None else "layer"
+    caches = [("", "k", "v", length)]
+    if "xk" in cache:           # the cross caches, valid at their length F
+        caches.append(("cross_", "xk", "xv", cache["xk"].shape[2]))
+    for prefix, kn, vn, n in caches if "k" in cache else []:
+        for layer in (0, cache[kn].shape[0] - 1):
+            k, v = cache[kn][layer], cache[vn][layer]
+            q = torch.randn((b, cfg.num_heads, cfg.resolved_head_dim()),
+                            generator=gq, device=dev)
+            got = ops.gqa_decode_attention(q, k, v, n, device=dev)
+            live[f"{prefix}{unit}{layer}"] = check(
+                f"{tag}: live {prefix}cache {unit} {layer}", got,
+                ref.decode_attention_ref(q, k, v, n), 5e-5, 5e-5)
+    bounds = (family_bounds(params, cfg, b, prompt, FAMILY_GEN)
+              if cfg.kind in ("dense", "moe", "vlm") else
+              model_family_bounds(params, cfg, b, prompt, FAMILY_GEN, cache))
     out = {"arch": cfg.name, "layers": cfg.num_layers,
            "published_layers": get_config(arch).num_layers,
            "d_model": cfg.d_model,
@@ -2307,8 +2395,7 @@ def family_serve(arch: str, layers, dev) -> tuple:
            "weights_gb": _nbytes(params) / 1e9, "init_s": init_s,
            "prefill_ms": res["prefill_ms"],
            "decode_ms_per_token": res["decode_ms_per_token"],
-           **family_bounds(params, cfg, b, prompt, FAMILY_GEN),
-           "kernel_check_max_abs_err": kernel_err,
+           **bounds, "kernel_check_max_abs_err": kernel_err,
            "live_cache_length": length, "live_cache_max_abs_err": live,
            "first_request_tokens": tokens[0].tolist(),
            "launches": launches,
@@ -2336,7 +2423,7 @@ class route_recorder:
         MOE.route = self._route
 
 
-def family_parity(arch: str, dev) -> dict:
+def family_parity(arch: str, dev, phase="transformer_family") -> dict:
     """The arch cut to two layers at published width, weights from seed
     0 on the card, copied to the CPU: prefill and 15 decode steps on
     the card and in the port's CPU run, both fed the CPU run's greedy
@@ -2353,7 +2440,7 @@ def family_parity(arch: str, dev) -> dict:
     b, gen = FAMILY_BATCH, FAMILY_GEN
     batch = serve.make_batch(cfg, np.random.default_rng(1), b,
                              family_prompt(cfg), "cpu")
-    tag = f"transformer_family parity {cfg.name}"
+    tag = f"{phase} parity {cfg.name}"
     t0 = time.perf_counter()
     with route_recorder() as cpu_routes:
         cpu_logits, cpu_tokens = _teacher_forced(api, cpu, batch, gen, None)
@@ -2396,7 +2483,8 @@ def family_parity(arch: str, dev) -> dict:
     return out
 
 
-def family_finetune(arch: str, layers, rounds: int, dev) -> tuple:
+def family_finetune(arch: str, layers, rounds: int, dev,
+                    phase="transformer_family") -> tuple:
     """``train.train_rounds`` (the fine-tuning entry point's round loop)
     at published width with ``layers`` kept: 4 clients of 4 × 128
     tokens, K = 2, HiCS at T = 0.01, sgd lr 0.05, 1 epoch, the counts
@@ -2431,7 +2519,7 @@ def family_finetune(arch: str, layers, rounds: int, dev) -> tuple:
     seconds = time.perf_counter() - t0
     launches = dict(kbuild.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    tag = f"transformer_family finetune {cfg.name}"
+    tag = f"{phase} finetune {cfg.name}"
     for name in ("fused_stats", "gram_update"):
         require(f"{tag}: {name} was not launched", launches[name] > 0)
     require(f"{tag}: fused_stats launches differ from the strip's",
@@ -2450,7 +2538,8 @@ def family_finetune(arch: str, layers, rounds: int, dev) -> tuple:
            "ms_per_local_step": [r["local_s"] / steps * 1e3 for r in rec],
            "selected": hist["selected"], "loss": hist["loss"],
            "delta_b_shape": list(rec[0]["delta_b"].shape),
-           "moe_frac_dropped": float(metrics["moe_frac_dropped"]),
+           "moe_frac_dropped": (float(metrics["moe_frac_dropped"])
+                                if "moe_frac_dropped" in metrics else None),
            "peak_memory_gb": peak / 1e9, "launches": launches,
            "cpu_replay": lm_replay(rec, sel, FT_CLIENTS, FT_SELECT, rounds,
                                    classes, tag)}
@@ -2458,14 +2547,15 @@ def family_finetune(arch: str, layers, rounds: int, dev) -> tuple:
     return out, launches
 
 
-def family_serve_batched() -> tuple:
-    """``repro_torch.examples.serve_batched`` with mixtral-8x22b, as the
+def family_serve_batched(arch="mixtral-8x22b",
+                         phase="transformer_family") -> tuple:
+    """``repro_torch.examples.serve_batched`` with ``arch``, as the
     reference runs it (reduced), the counts set to 0 just before."""
     kbuild.reset_launches()
-    res = serve_batched.main(["--arch", "mixtral-8x22b"])
+    res = serve_batched.main(["--arch", arch])
     torch.cuda.synchronize()
     launches = dict(kbuild.launches)
-    tag = "transformer_family serve_batched"
+    tag = f"{phase} serve_batched"
     require(f"{tag}: decode_attention was not launched",
             launches["decode_attention"] > 0)
     require(f"{tag}: kernel check {res['kernel_max_abs_err']} > 5e-5",
@@ -2503,6 +2593,61 @@ def transformer_family_phase(dev) -> dict:
     for arch in FAMILY_PARITY:
         out["parity"].append(family_parity(arch, dev))
     out["serve_batched"], n = family_serve_batched()
+    _add(total, n)
+    out.update({"launches": total, "seconds": time.perf_counter() - t0})
+    emit(out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# the remaining model families: rwkv6-3b, zamba2-7b (Mamba2 with shared
+# attention at dh 112), seamless-m4t-medium (cross-attention over frames)
+# ---------------------------------------------------------------------------
+
+#: served at published width and depth
+MF_SERVE = ("rwkv6-3b", "zamba2-7b", "seamless-m4t-medium")
+#: (arch, layers kept, rounds) of the fine-tunes at published width:
+#: rwkv's WKV loop makes a step host-bound (8 layers: 1.3–1.6 s), so its
+#: depth is cut for time; zamba2's 36 layers are six sites, both shared
+#: blocks three times each, four f32 trees of 3.45 B params (~55 GB)
+MF_FT = (("rwkv6-3b", 8, 3), ("zamba2-7b", 36, 2))
+MF_SERVE_BATCHED = "seamless-m4t-medium"
+
+
+def model_families_phase(dev) -> dict:
+    """rwkv6-3b, zamba2-7b and seamless-m4t-medium served at published
+    width and depth (:data:`MF_SERVE`: the decode kernel checked at
+    zamba2's dh 112 and seamless's dh 64 and on their live caches,
+    seamless's cross cache among them; rwkv has no attention), rwkv and
+    zamba2 fine-tuned (:data:`MF_FT`), each arch's two-layer cut on the
+    card against the port's CPU run with equal greedy tokens, and the
+    serve_batched example with seamless.  Returns the launches summed
+    over the serve, fine-tune and example runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    total: dict = {}
+    out = {"phase": "model_families", "card": CARD, "serve": [],
+           "finetune": [], "parity": []}
+    for arch in MF_SERVE:
+        rec, n = family_serve(arch, None, dev, "model_families")
+        _add(total, n)
+        out["serve"].append(rec)
+    for arch, layers, rounds in MF_FT:
+        rec, n = family_finetune(arch, layers, rounds, dev, "model_families")
+        _add(total, n)
+        out["finetune"].append(rec)
+    for arch in MF_SERVE:
+        rec = family_parity(arch, dev, "model_families")
+        require(f"model_families parity {rec['arch']}: greedy tokens "
+                f"{rec['greedy_tokens_agree']} of "
+                f"{rec['greedy_tokens_total']} equal",
+                rec["greedy_tokens_agree"] == rec["greedy_tokens_total"])
+        out["parity"].append(rec)
+    out["serve_batched"], n = family_serve_batched(MF_SERVE_BATCHED,
+                                                   "model_families")
     _add(total, n)
     out.update({"launches": total, "seconds": time.perf_counter() - t0})
     emit(out)
@@ -3517,7 +3662,8 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     alone = ("graph_rounds", "lm_train", "local_algos", "finetune_example",
-             "scenarios", "telemetry", "transformer_family")
+             "scenarios", "telemetry", "transformer_family",
+             "model_families")
     if argv and (len(argv) > 1 or argv[0] not in alone):
         print(f"usage: chip_smoke.py [{' | '.join(alone)}]", file=sys.stderr)
         return 2
@@ -3548,7 +3694,9 @@ def main(argv) -> int:
          "scenarios": lambda: scenarios_phase(dev),
          "telemetry": lambda: telemetry_phase(dev),
          "transformer_family": lambda: (serve_kernels_phase(dev),
-                                        transformer_family_phase(dev))
+                                        transformer_family_phase(dev)),
+         "model_families": lambda: (serve_kernels_phase(dev),
+                                    model_families_phase(dev))
          }[argv[0]]()
         for f in failures:
             print("FAILED:", f, file=sys.stderr)
@@ -3573,6 +3721,7 @@ def main(argv) -> int:
     serve_parity_phase(res, dev)
     del res
     family_launches = transformer_family_phase(dev)
+    mf_launches = model_families_phase(dev)
     lm_launches = lm_train_phase(dev)
     ft_launches = finetune_example_phase(dev)
     scn_launches, scn_epilogues = scenarios_phase(dev)
@@ -3632,6 +3781,12 @@ def main(argv) -> int:
                                         "max_abs_err")}
         for c in serve_cases["decode_attention"]
         if "dh256,S512" in c["case"] and "ms" in c]
+    # dh 112, zamba2's serve shape, f32 and bf16
+    kernels[4]["dh112"] = [
+        {key: c[key] for key in keys + ("bound_by", "library_ms",
+                                        "max_abs_err")}
+        for c in serve_cases["decode_attention"]
+        if "dh112,S512" in c["case"] and "ms" in c]
     # the strip kernel per epilogue: its launches on its own path and
     # its timed case at that path's shape (arccos: the slice's K5×N50×
     # C10; cosine and l2: the baselines' K5×N50×F158,570)
@@ -3673,6 +3828,8 @@ def main(argv) -> int:
         kern["launches_telemetry"] = tel_launches[kern["name"]]
         # phase transformer_family: its serves, fine-tunes and example
         kern["launches_transformer_family"] = family_launches[kern["name"]]
+        # phase model_families: its serves, fine-tunes and example
+        kern["launches_model_families"] = mf_launches[kern["name"]]
     strip["launches_scenarios_by_epilogue"] = scn_epilogues
     # the arccos strip at the LM fine-tune's K2×N8×C151,936
     strip["lm_path"] = {key: lm_strip[key] for key in keys + (

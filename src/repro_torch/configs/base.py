@@ -3,21 +3,19 @@
 A copy of the reference's ``configs/base.py`` (the port imports nothing
 of ``repro``): :class:`ModelConfig` with its sub-configs,
 ``resolved_head_dim()`` and ``reduced()`` as they are there, the
-assigned input shapes, and ``register`` / ``get_config``.  Each
-``<arch>.py`` module of this package registers the configs the port
-runs: paper-cnn and paper-mlp (the HiCS-FL slice), qwen2.5-3b (the
-serving slice and LM fine-tuning), qwen3-8b (LM fine-tuning's default
-arch), and the rest of the decoder-only transformer family: gemma-7b
+assigned input shapes, and ``register`` / ``get_config`` /
+``list_archs``.  Each ``<arch>.py`` module of this package registers
+one of the reference's configs: paper-cnn and paper-mlp (the HiCS-FL
+slice), the decoder-only transformers qwen2.5-3b, qwen3-8b, gemma-7b
 and deepseek-coder-33b (dense), granite-moe-1b-a400m and mixtral-8x22b
-(MoE), pixtral-12b (the VLM prefix).
+(MoE), pixtral-12b (the VLM prefix), and rwkv6-3b (ssm), zamba2-7b
+(hybrid) and seamless-m4t-medium (audio encoder-decoder).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional
-
-from repro_torch.core.selectors.functional import LM_SUBSTRATE, not_ported
 
 ARCH_KINDS = ("dense", "moe", "ssm", "hybrid", "audio", "vlm", "classifier")
 
@@ -92,7 +90,7 @@ class ModelConfig:
     scale_embeddings: bool = False   # multiply embeddings by sqrt(d_model)
     # HiCS-FL head option: the estimator reads Δb of the head
     lm_head_bias: bool = True
-    # sub-configs (the port runs moe and vlm; the others raise)
+    # sub-configs
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
@@ -187,17 +185,16 @@ def register(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
-#: the archs the reference registers and the port does not run yet
-NOT_PORTED_ARCHS = ("rwkv6-3b", "seamless-m4t-medium", "zamba2-7b")
-
-
 def get_config(name: str) -> ModelConfig:
-    """The registered config ``name``.  A reference arch the port does
-    not run yet raises ``NotImplementedError`` naming the ROADMAP.md
-    item that ports it; a name neither package knows, ``KeyError``."""
+    """The registered config ``name``; an unknown name raises
+    ``KeyError``."""
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in NOT_PORTED_ARCHS:
-        raise not_ported("arch", name, LM_SUBSTRATE)
     raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+
+
+def list_archs():
+    """The registered arch names, sorted (the reference's
+    ``list_archs``)."""
+    return tuple(sorted(_REGISTRY))
 

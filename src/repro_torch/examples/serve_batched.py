@@ -8,10 +8,11 @@ version on the arch's attention geometry.  The port of the reference's
   PYTHONPATH=src python -m repro_torch.examples.serve_batched \\
       --arch pixtral-12b --device cpu
 
-Dense, MoE and VLM archs run (a VLM's prompt is its patch embeddings
-then prompt-len − P tokens); an audio arch raises
-``NotImplementedError``.  Weights come from a generator on the device
-seeded 0, prompts and the kernel check's q/K/V from
+Every arch runs: a VLM's prompt is its patch embeddings then
+prompt-len − P tokens, an audio arch's its frame embeddings then
+prompt-len tokens; an arch with no attention (rwkv6-3b) skips the
+kernel check, as the reference does.  Weights come from a generator on
+the device seeded 0, prompts and the kernel check's q/K/V from
 ``np.random.default_rng(0)``.  On the CPU the kernel check holds the
 plain version against itself (0).
 """
@@ -23,8 +24,8 @@ import numpy as np
 
 from repro_torch.backend import resolve_device, set_precision
 from repro_torch.configs import get_config
-from repro_torch.launch.serve import (KERNEL_CHECK_S, decode_kernel_check,
-                                      generate, make_batch)
+from repro_torch.launch.serve import (decode_kernel_check, generate,
+                                      kernel_check_line, make_batch)
 from repro_torch.models import get_model
 
 
@@ -33,11 +34,12 @@ def serve_batched(api, params, rng, batch: int, prompt_len: int, gen: int,
     """Prefill a batch drawn from ``rng`` and decode ``gen`` tokens,
     then the decode kernel check on the next draws of ``rng``: the
     result of :func:`repro_torch.launch.serve.generate` with
-    ``kernel_max_abs_err``."""
+    ``kernel_max_abs_err`` (None for an arch with no attention)."""
     res = generate(api, params,
                    make_batch(api.cfg, rng, batch, prompt_len, device), gen)
-    res["kernel_max_abs_err"] = decode_kernel_check(api.cfg, batch, rng,
-                                                    device)
+    res["kernel_max_abs_err"] = (
+        decode_kernel_check(api.cfg, batch, rng, device)
+        if api.cfg.num_heads else None)
     return res
 
 
@@ -62,9 +64,7 @@ def main(argv=None) -> dict:
           f"{res['decode_ms_per_token']:.1f} ms/token ({device.type}, "
           "reduced config)")
     print("sample:", res["tokens"][0][:12].tolist())
-    print(f"flash-decode kernel (H={cfg.num_heads} KV={cfg.num_kv_heads} "
-          f"dh={cfg.resolved_head_dim()} S={KERNEL_CHECK_S}): max|Δ| vs "
-          f"plain = {res['kernel_max_abs_err']:.2e}")
+    print(kernel_check_line(cfg, res["kernel_max_abs_err"]))
     res.update(cfg=cfg, params=params)
     return res
 

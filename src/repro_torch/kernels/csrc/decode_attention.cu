@@ -44,8 +44,10 @@
 //   zero-filled without a read (cp.async's src-size 0).  Each warp
 //   keeps its own online (m, l, acc) and the 4 are merged in warp
 //   order through shared memory once, at the end.
-// * q of the block's G heads lives in registers, E = dh / 32 values a
-//   lane (G padded to GP, a power of two, with zero heads), so each
+// * q of the block's G heads lives in registers, E = ceil(dh / 32)
+//   values a lane (G padded to GP, a power of two, with zero heads;
+//   where 32·E > dh, as at dh 112 (E = 4), the lanes at and past dh / E
+//   hold zeros in q, read no K or V and drop their accumulators), so each
 //   staged K and V value is read from shared memory once by one lane
 //   and feeds all G heads: per K row, G·E FMAs into G partial dot
 //   products; per V row, G·E FMAs into the G accumulators.  The G·RS
@@ -188,13 +190,17 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[N]) {
 }
 
 // One warp's BS / WARPS = PW positions of a tile, K rows then V rows,
-// into one stage of its ring; rows at or past len are zero-filled.
+// into one stage of its ring; rows at or past len are zero-filled.  A
+// row is DH values, a whole number of 16-byte chunks (dh 112: 28 f32
+// or 14 bf16 chunks, 14 or 7 a lane).
 template <typename T, int DH>
 __device__ __forceinline__ void load_tile(T* stage, const T* kb, const T* vb,
                                           int pos0, int len,
                                           size_t pos_stride, int lane) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CH = DH / VEC;        // 16-byte chunks a row
+  static_assert(DH % VEC == 0 && (2 * PW * CH) % 32 == 0,
+                "a tile's rows must split into whole 16-byte chunks a lane");
   constexpr int PER_LANE = 2 * PW * CH / 32;
   const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(stage));
 #pragma unroll
@@ -210,9 +216,15 @@ __device__ __forceinline__ void load_tile(T* stage, const T* kb, const T* vb,
   }
 }
 
-template <typename T, int GP, int E>
+// DH the stored row width (the row stride in device memory and in the
+// ring), E = ceil(DH / 32) the values a lane; LANES = DH / E lanes hold
+// values, the rest none.
+template <typename T, int GP, int DH_>
 struct Layout {
-  static constexpr int DH = 32 * E;
+  static constexpr int DH = DH_;
+  static constexpr int E = (DH + 31) / 32;
+  static constexpr int LANES = DH / E;
+  static_assert(E * LANES == DH, "E = ceil(DH / 32) must divide DH");
   static constexpr int STAGE = 2 * PW * DH;   // elements of T
   static constexpr size_t RING = sizeof(T) * WARPS * STAGES * STAGE;
   static constexpr size_t PROBS = sizeof(float) * WARPS * PW * GP;
@@ -224,14 +236,16 @@ struct Layout {
 
 // Block (bh, split) of the (B·KV) × P grid, bh = b·KV + h: the partial
 // of split `split` of (batch b, KV head h), or its output when P = 1.
-template <typename T, int GP, int E>
+template <typename T, int GP, int DH_>
 __global__ void __launch_bounds__(THREADS, 3)
 decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ lengths,
                     float* __restrict__ out, float* __restrict__ ws,
                     int s_len, int kv, int g, int splits, float scale) {
-  using L = Layout<T, GP, E>;
+  using L = Layout<T, GP, DH_>;
   constexpr int DH = L::DH;
+  constexpr int E = L::E;
+  constexpr int LANES = L::LANES;
   constexpr int RS = PW < 32 / GP ? PW : 32 / GP;  // rows a logit step
   constexpr int NS = PW / RS;                      // logit steps a tile
   constexpr int N = GP * RS;                       // partial sums a step
@@ -256,6 +270,8 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
                                   (split + 1) / splits);
   const int n_tiles = max(0, min(t1, (len + BS - 1) / BS) - t0);
 
+  // this lane's E values lie in the row (every lane's where 32·E = dh)
+  const bool holds = LANES == 32 || lane < LANES;
   const int idx = lane / DUP;   // this lane's logit: head idx / RS,
   const int row_of = idx % RS;  // row s·RS + idx % RS of the warp's PW
   // The g query heads of this KV head are contiguous in q (B, H, dh).
@@ -269,7 +285,7 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
     const int head = gg ^ (idx / RS);
 #pragma unroll
     for (int e = 0; e < E; ++e)
-      qr[gg][e] = head < g ? qb[head * DH + e] : 0.0f;
+      qr[gg][e] = head < g && holds ? qb[head * DH + e] : 0.0f;
   }
 
   float acc[GP][E];
@@ -314,8 +330,8 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
       float part[N];
 #pragma unroll
       for (int r = 0; r < RS; ++r) {
-        float kr[E];
-        load_row(ks + (s * RS + (r ^ row_of)) * DH + lane * E, kr);
+        float kr[E] = {};
+        if (holds) load_row(ks + (s * RS + (r ^ row_of)) * DH + lane * E, kr);
 #pragma unroll
         for (int gg = 0; gg < GP; ++gg) {
           float d = qr[gg][0] * kr[0];
@@ -367,8 +383,8 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
     // p·V: one read of each V value, G accumulators
 #pragma unroll
     for (int j = 0; j < PW; ++j) {
-      float vr[E];
-      load_row(vs + j * DH + lane * E, vr);
+      float vr[E] = {};
+      if (holds) load_row(vs + j * DH + lane * E, vr);
       float pj[GP];
       load_probs<GP>(probs + j * GP, pj);
 #pragma unroll
@@ -384,11 +400,13 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
   float* macc = reinterpret_cast<float*>(smem4);  // [WARPS][GP][DH]
   float* mm = macc + WARPS * GP * DH;              // [WARPS][GP]
   float* ml = mm + WARPS * GP;
+  if (holds) {
 #pragma unroll
-  for (int gg = 0; gg < GP; ++gg)
+    for (int gg = 0; gg < GP; ++gg)
 #pragma unroll
-    for (int e = 0; e < E; ++e)
-      macc[(warp * GP + gg) * DH + lane * E + e] = acc[gg][e];
+      for (int e = 0; e < E; ++e)
+        macc[(warp * GP + gg) * DH + lane * E + e] = acc[gg][e];
+  }
   if (lane % GL == 0) {
     mm[warp * GP + lane / GL] = m;
     ml[warp * GP + lane / GL] = l;
@@ -445,61 +463,68 @@ decode_merge_kernel(const float* __restrict__ ws, float* __restrict__ out,
   out[static_cast<size_t>(blockIdx.x) * gdh + i] = as / fmaxf(ls, 1e-30f);
 }
 
-template <typename T, int GP, int E>
+template <typename T, int GP, int DH>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, void* ws, int b, int s_len, int kv, int g, int splits,
            float scale, cudaStream_t st) {
-  constexpr size_t smem = Layout<T, GP, E>::SMEM;
+  constexpr size_t smem = Layout<T, GP, DH>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_split_kernel<T, GP, E>,
+      decode_split_kernel<T, GP, DH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_split_kernel<T, GP, E><<<b * kv * splits, THREADS, smem, st>>>(
+  decode_split_kernel<T, GP, DH><<<b * kv * splits, THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lengths),
       static_cast<float*>(out), static_cast<float*>(ws), s_len, kv, g,
       splits, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const dim3 merge_grid(b * kv,
-                        (g * 32 * E + MERGE_THREADS - 1) / MERGE_THREADS);
+  const dim3 merge_grid(b * kv, (g * DH + MERGE_THREADS - 1) / MERGE_THREADS);
   decode_merge_kernel<<<merge_grid, MERGE_THREADS, 0, st>>>(
-      static_cast<const float*>(ws), static_cast<float*>(out), splits, g,
-      32 * E);
+      static_cast<const float*>(ws), static_cast<float*>(out), splits, g, DH);
   return static_cast<int>(cudaGetLastError());
 }
 
-// G padded to GP in {2, 4, 8, 16}; dh = 32·E in {64, 128, 256}; GP·E <= 32
-// (q and the accumulators stay in registers).  At dh 256 the f32 ring is
-// 192 KB, so an SM holds one block of it (bf16: two).
+// G padded to GP in {2, 4, 8, 16}; dh in {64, 112, 128, 256}, E =
+// ceil(dh / 32); GP·E <= 32 (q and the accumulators stay in registers).
+// At dh 256 the f32 ring is 192 KB, so an SM holds one block of it
+// (bf16: two).  dh 112 (zamba2's shared attention) takes E = 4 as dh 128
+// does, on 28 of the 32 lanes.
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v,
              const void* lengths, void* out, void* ws, int b, int s_len,
              int kv, int g, int dh, int splits, float scale,
              cudaStream_t st) {
   const int gp = g <= 2 ? 2 : g <= 4 ? 4 : g <= 8 ? 8 : 16;
-#define DECODE_LAUNCH(GP, E)                                                  \
-  return launch<T, GP, E>(q, k, v, lengths, out, ws, b, s_len, kv, g, splits, \
-                          scale, st)
+#define DECODE_LAUNCH(GP, DH)                                         \
+  return launch<T, GP, DH>(q, k, v, lengths, out, ws, b, s_len, kv, g, \
+                           splits, scale, st)
   if (g >= 1 && g <= 16 && dh == 64) {
     switch (gp) {
-      case 2: DECODE_LAUNCH(2, 2);
-      case 4: DECODE_LAUNCH(4, 2);
-      case 8: DECODE_LAUNCH(8, 2);
-      default: DECODE_LAUNCH(16, 2);
+      case 2: DECODE_LAUNCH(2, 64);
+      case 4: DECODE_LAUNCH(4, 64);
+      case 8: DECODE_LAUNCH(8, 64);
+      default: DECODE_LAUNCH(16, 64);
+    }
+  }
+  if (g >= 1 && g <= 8 && dh == 112) {
+    switch (gp) {
+      case 2: DECODE_LAUNCH(2, 112);
+      case 4: DECODE_LAUNCH(4, 112);
+      default: DECODE_LAUNCH(8, 112);
     }
   }
   if (g >= 1 && g <= 8 && dh == 128) {
     switch (gp) {
-      case 2: DECODE_LAUNCH(2, 4);
-      case 4: DECODE_LAUNCH(4, 4);
-      default: DECODE_LAUNCH(8, 4);
+      case 2: DECODE_LAUNCH(2, 128);
+      case 4: DECODE_LAUNCH(4, 128);
+      default: DECODE_LAUNCH(8, 128);
     }
   }
   if (g >= 1 && g <= 4 && dh == 256) {
     switch (gp) {
-      case 2: DECODE_LAUNCH(2, 8);
-      default: DECODE_LAUNCH(4, 8);
+      case 2: DECODE_LAUNCH(2, 256);
+      default: DECODE_LAUNCH(4, 256);
     }
   }
 #undef DECODE_LAUNCH
@@ -511,7 +536,7 @@ int dispatch(const void* q, const void* k, const void* v,
 // q (b, kv·g, dh) f32; k, v (b, s_len, kv, dh) f32 (bf16 == 0) or bf16;
 // lengths (b,) int32; out (b, kv·g, dh) f32; ws the splits' partials,
 // (b·kv·splits, g·(dh + 2)) f32, unused (may be null) when splits == 1.
-// dh 64, 128 or 256, GP·dh <= 1024 (the wrapper checks), every pointer
+// dh 64, 112, 128 or 256, GP·dh <= 1024 (the wrapper checks), every pointer
 // 16-byte aligned, 1 <= splits <= ceil(s_len / 32).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* lengths,

@@ -40,8 +40,12 @@ MIN_SPLIT_TILES = 2
 #: the share of whole waves the blocks must fill before more splits
 #: stop paying for themselves
 WAVE_FILL = 0.9
-HEAD_DIMS = (64, 128, 256)
-#: G·dh the registers hold (q and the accumulators, 32 floats a lane)
+#: the stored row widths the kernel is built for; a lane holds
+#: E = ceil(dh / 32) values (dh 112, zamba2's shared attention: E = 4
+#: on 28 lanes, the other 4 hold zeros)
+HEAD_DIMS = (64, 112, 128, 256)
+#: GP·dh the registers hold (q and the accumulators, 32 floats a lane;
+#: zamba2's G 1 -> GP 2 needs 2 · 112 = 224)
 MAX_GROUP_WIDTH = 1024
 
 

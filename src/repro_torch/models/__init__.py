@@ -1,4 +1,5 @@
-"""Models of the port: the paper's classifiers and the dense LM."""
+"""Models of the port: the paper's classifiers and, through
+``get_model``, every LM family of the reference."""
 from repro_torch.models.classifier import (cnn_apply, cnn_features,
                                            make_classifier,
                                            make_classifier_with_features,

@@ -1,8 +1,9 @@
 """Layers of the decoder LM: initializers, norms, RoPE, attention
 (prefill and decode), the KV-cache write and the MLPs.
 
-A port of the reference's ``models/layers.py`` with what the
-decoder-only transformer needs (cross-attention is not ported).
+A port of the reference's ``models/layers.py``: what the decoder-only
+transformer, the hybrid's shared blocks and the encoder-decoder need,
+cross-attention among it.
 Params are nested dicts of tensors, in the reference's layouts:
 (d_in, d_out) weights, heads split last, caches (B, S, KV, dh).  Init functions take a ``lead``
 shape that is prepended to every tensor, so that the transformer can
@@ -269,6 +270,37 @@ def attention_decode_block(p, x, cfg, k_cache, v_cache, pos: int, *,
                            ring=ring)
     out = out.reshape(b, 1, -1).to(x.dtype) @ p["wo"].to(x.dtype)
     return out, (k_cache, v_cache)
+
+
+def init_cross_attention(gen: torch.Generator, cfg, lead=()) -> dict:
+    """Cross-attention: queries from the decoder, keys and values from
+    the encoder; the self-attention's layout."""
+    return init_attention(gen, cfg, lead)
+
+
+def cross_attention_block(p, x, enc_k, enc_v, cfg):
+    """x (B, Tq, d) against the encoder's precomputed enc_k / enc_v
+    (B, Tk, KV, dh): no RoPE and no mask on either side."""
+    b, t, _ = x.shape
+    h, dh = cfg.num_heads, cfg.resolved_head_dim()
+    q = x @ p["wq"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    out = full_attention(q.reshape(b, t, h, dh), enc_k, enc_v, causal=False)
+    return out.reshape(b, t, h * dh) @ p["wo"].to(x.dtype)
+
+
+def cross_kv(p, enc_out, cfg):
+    """The cross-attention's K and V (B, Tk, KV, dh) of the encoder's
+    output (B, Tk, d)."""
+    b, tk, _ = enc_out.shape
+    kv, dh = cfg.num_kv_heads, cfg.resolved_head_dim()
+    k = enc_out @ p["wk"].to(enc_out.dtype)
+    v = enc_out @ p["wv"].to(enc_out.dtype)
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(enc_out.dtype)
+        v = v + p["bv"].to(enc_out.dtype)
+    return k.reshape(b, tk, kv, dh), v.reshape(b, tk, kv, dh)
 
 
 # ---------------------------------------------------------------------------

@@ -2,13 +2,14 @@
 init, forward, the training loss, prefill and one-token decode against
 a bf16 KV cache.
 
-A port of the reference's ``models/transformer.py``.  A config with an
-SSM, RWKV, hybrid or encoder-decoder part is not ported and raises.
-Layers are stacked on a leading axis as in the reference (its vmapped
-init), and run in a Python loop over that axis in place of ``lax.scan``:
-each stacked leaf is split once a forward (``torch.unbind``), whose
-backward is one ``stack``, where indexing each layer would write a
-zero-filled gradient of the whole stacked leaf per layer.  A MoE
+A port of the reference's ``models/transformer.py``; the other
+families (``rwkv.py``, ``hybrid.py``, ``encdec.py``) share its layer
+stacking, head and loss helpers.  Layers are stacked on a leading axis
+as in the reference (its vmapped init), and run in a Python loop
+over that axis in place of ``lax.scan``: each stacked leaf is split
+once a forward (``torch.unbind``), whose backward is one ``stack``,
+where indexing each layer would write a zero-filled gradient of the
+whole stacked leaf per layer.  A MoE
 config's layers take ``models/moe.py``'s block in place of the MLP,
 and its per-layer aux terms are stacked over the layers as the scan
 stacks them.  A VLM config projects a batch's ``patches`` (B, P,
@@ -30,16 +31,6 @@ from repro_torch.core.selectors.functional import LM_SUBSTRATE, not_ported
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models.losses import chunked_lm_loss
-
-_NOT_PORTED = ("ssm", "rwkv", "hybrid", "encdec")
-
-
-def require_ported(cfg) -> None:
-    """Raise for a config part the port's transformer does not cover
-    yet (MoE and VLM configs pass)."""
-    for name in _NOT_PORTED:
-        if getattr(cfg, name) is not None:
-            raise not_ported(name, getattr(cfg, name), LM_SUBSTRATE)
 
 
 # ---------------------------------------------------------------------------
@@ -72,7 +63,6 @@ def cache_geometry(cfg, seq_len: int, long_context: bool):
 
 def init_params(gen: torch.Generator, cfg) -> dict:
     """Random params on ``gen``'s device, layers stacked on axis 0."""
-    require_ported(cfg)
     dev, d = gen.device, cfg.d_model
     lead = (cfg.num_layers,)
     layers = {
@@ -125,10 +115,24 @@ def head_weights(params, cfg):
     return w, b
 
 
-def _logits(params, x, cfg):
+def head_logits(params, x, cfg):
+    """The head's f32 logits of hidden states x (..., d)."""
     w, b = head_weights(params, cfg)
     logits = (x @ w.to(x.dtype)).float()
     return logits if b is None else logits + b
+
+
+def lm_loss(params, x, batch, cfg, loss_chunk: int = 512):
+    """The chunked cross-entropy of the head on hidden states x (B, S,
+    d) against batch['targets'] under batch['loss_mask'] (all ones if
+    absent): (loss, {ce_loss, accuracy, tokens, loss})."""
+    targets, mask = batch["targets"], batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, device=x.device)
+    w, b = head_weights(params, cfg)
+    loss, metrics = chunked_lm_loss(x, w, b, targets, mask, chunk=loss_chunk)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +170,6 @@ def forward(params, tokens, cfg, *, extra_embeds=None, q_chunk: int = 128):
     ``extra_embeds`` (B, P, patch_embed_dim) if given (VLM).  Returns
     (hidden (B, P + T, d) after the final norm, [(k, v) of each layer],
     the MoE aux terms stacked over the layers or None)."""
-    require_ported(cfg)
     x = _embed(params, tokens, cfg)
     if extra_embeds is not None:
         proj = params["projector"]
@@ -203,18 +206,13 @@ def loss_fn(params, batch, cfg, *, dtype=torch.float32, q_chunk: int = 128,
     compute dtype other than f32 is not ported."""
     if dtype != torch.float32:
         raise not_ported("dtype", dtype, LM_SUBSTRATE)
-    tokens, targets = batch["tokens"], batch["targets"]
-    mask = batch.get("loss_mask")
+    tokens = batch["tokens"]
     extra = _patches(batch, cfg)
     x, _, aux = forward(params, tokens, cfg, extra_embeds=extra,
                         q_chunk=q_chunk)
     if extra is not None:
         x = x[:, -tokens.shape[1]:, :]     # loss over text positions only
-    if mask is None:
-        mask = torch.ones(targets.shape, device=x.device)
-    w, b = head_weights(params, cfg)
-    loss, metrics = chunked_lm_loss(x, w, b, targets, mask,
-                                    chunk=loss_chunk)
+    loss, metrics = lm_loss(params, x, batch, cfg, loss_chunk)
     if aux is not None:
         loss = loss + aux["moe_lb_loss"].sum() + aux["moe_z_loss"].sum()
         metrics["moe_frac_dropped"] = aux["moe_frac_dropped"].mean()
@@ -252,7 +250,7 @@ def prefill(params, batch, cfg, *, cache_extra: int = 0):
     free slots)."""
     x, kvs, _ = forward(params, batch["tokens"], cfg,
                         extra_embeds=_patches(batch, cfg))
-    logits = _logits(params, x[:, -1:, :], cfg)
+    logits = head_logits(params, x[:, -1:, :], cfg)
     cache = {name: _pad_cache_seq(
         torch.stack([kv[j] for kv in kvs]).to(torch.bfloat16), cache_extra)
         for j, name in enumerate(("k", "v"))}
@@ -264,7 +262,6 @@ def decode_step(params, cache, batch, cfg, *, window: int = 0,
     """One-token decode.  batch: {'token': (B, 1), 'pos': int}.  Writes
     the token's K/V into ``cache`` in place; returns (logits (B, 1, V)
     f32, cache)."""
-    require_ported(cfg)
     token, pos = batch["token"], int(batch["pos"])
     x = _embed(params, token, cfg)
     layers = unstack_layers(params["layers"], cfg.num_layers)
@@ -277,4 +274,4 @@ def decode_step(params, cache, batch, cfg, *, window: int = 0,
         h = L.apply_norm(y, lp["ln2"], cfg.norm)
         x = y + _ffn(lp, h, cfg)[0]
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
-    return _logits(params, x, cfg), cache
+    return head_logits(params, x, cfg), cache

@@ -188,12 +188,17 @@ def test_layer_helpers_take_an_explicit_device():
 
 
 def test_serve_entry_points_raise_without_cuda(no_cuda):
-    """Model init, the cache and the serve entry point default to the card."""
+    """Model init, the cache and the serve entry point default to the
+    card, in every model family."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import get_model
-    api = get_model("qwen2.5-3b")
-    calls = [lambda: api.init(0), lambda: api.init_cache(1, 8),
-             lambda: serve.main(["--full"]), lambda: serve.main([])]
+    calls = [lambda: serve.main(["--full"]), lambda: serve.main([])]
+    for arch in ("qwen2.5-3b", "rwkv6-3b", "zamba2-7b",
+                 "seamless-m4t-medium"):
+        api = get_model(get_config(arch).reduced())
+        calls += [lambda api=api: api.init(0),
+                  lambda api=api: api.init_cache(1, 8)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -397,9 +397,12 @@ def test_entropy_plain_extreme_magnitudes():
 
 def test_decode_attention_plain_vs_pallas():
     """5e-5 for f32 and 3e-2 for bf16 K/V (and q), absolute and
-    relative; the Pallas kernel with 128-position blocks."""
+    relative; the Pallas kernel with 128-position blocks.  dh 112 is
+    zamba2's shared attention (MHA, G 1), a row that is not a multiple
+    of 32."""
     each(_decode_case, [(2, 8, 2, 64, 256), (1, 16, 8, 128, 512),
-                        (2, 4, 4, 256, 128), (3, 2, 1, 64, 96)],
+                        (2, 4, 4, 256, 128), (3, 2, 1, 64, 96),
+                        (2, 4, 4, 112, 128)],
          [jnp.float32, jnp.bfloat16])
 
 
@@ -467,16 +470,19 @@ def test_decode_splits_cover_every_tile_once():
 
 
 def test_decode_split_plain_vs_pallas():
-    """The split plain version at G in {1, 2, 8}, dh in {64, 128, 256}, f32
-    and bf16 K/V with an f32 q, P in {1, 2, 3, 8}: within 5e-5 absolute
-    and relative of the Pallas kernel in interpret mode and of the
-    unsplit plain version (both sides read the same K/V values in f32;
-    only the order of the sums differs)."""
-    each(_split_case, [1, 2, 8], [64, 128, 256],
-         [jnp.float32, jnp.bfloat16])
+    """The split plain version at G in {1, 2, 8}, dh in {64, 128, 256}
+    and at zamba2's dh 112 with G 1 and 8, f32 and bf16 K/V with an f32
+    q, P in {1, 2, 3, 8}: within 5e-5 absolute and relative of the
+    Pallas kernel in interpret mode and of the unsplit plain version
+    (both sides read the same K/V values in f32; only the order of the
+    sums differs)."""
+    each(_split_case,
+         [(g, dh) for g in (1, 2, 8) for dh in (64, 128, 256)]
+         + [(1, 112), (8, 112)], [jnp.float32, jnp.bfloat16])
 
 
-def _split_case(g, dh, dtype):
+def _split_case(g_dh, dtype):
+    g, dh = g_dh
     b, kv, s = 2, 2, 256
     rng = np.random.default_rng(g * dh)
     q = rng.normal(size=(b, kv * g, dh)).astype(np.float32)

@@ -173,13 +173,14 @@ def test_loss_fn_unported_options_raise():
     with pytest.raises(NotImplementedError, match=item):
         tapi.loss(tp, tb, dtype=torch.bfloat16)
     # patches on a config without a VLM prefix are ignored, as in the
-    # reference; an SSM or RWKV part is not ported
+    # reference; so is an SSM part of a dense config: the registry
+    # routes by kind, and the reference's transformer reads no SSM field
     want, _ = tapi.loss(tp, tb)
     got, _ = tapi.loss(tp, dict(tb, patches=torch.zeros(1, 2, 8)))
     assert torch.equal(got, want)
     ssm_cfg = dataclasses.replace(tapi.cfg, ssm=SSMConfig())
-    with pytest.raises(NotImplementedError, match=item):
-        loss_fn(tp, tb, ssm_cfg)
+    got, _ = loss_fn(tp, tb, ssm_cfg)
+    assert torch.equal(got, want)
 
 
 def _tree(rng, scale=1.0):

@@ -257,31 +257,46 @@ def test_cache_geometry_matches_jax():
 
 
 def test_non_dense_configs_raise():
-    """A model kind, an arch option or a reference arch name the port
-    does not run raises ``NotImplementedError`` naming its ROADMAP.md
-    item; a name neither package registers, ``KeyError``."""
-    base = get_config(ARCH).reduced()
-    from repro_torch.configs.base import EncDecConfig, HybridConfig
-    item = "queue 1: the rest of the LM substrate"
-    for cfg in (dataclasses.replace(base, kind="hybrid",
-                                    hybrid=HybridConfig()),
-                dataclasses.replace(base, kind="audio",
-                                    encdec=EncDecConfig()),
-                dataclasses.replace(base, kind="ssm")):
-        with pytest.raises(NotImplementedError, match=item):
-            get_model(cfg)
+    """Every model kind of the reference builds, and the port registers
+    the reference's archs; what the port still does not run raises
+    ``NotImplementedError`` naming its ROADMAP.md item (a loss in a
+    compute dtype other than f32, in every family), a name neither
+    package registers ``KeyError``, a classifier ``ValueError``; an
+    audio arch through ``launch.train`` fails as the reference's does
+    (its batches carry no frames)."""
     from repro.configs import list_archs
-    from repro_torch.configs.base import NOT_PORTED_ARCHS, _REGISTRY
-    assert set(NOT_PORTED_ARCHS) == set(list_archs()) - set(_REGISTRY)
-    for name in NOT_PORTED_ARCHS:
+    from repro.launch import train as jtrain
+    from repro_torch.configs import list_archs as port_archs
+    from repro_torch.launch import train as ttrain
+    assert port_archs() == list_archs()
+    item = "queue 1: the rest of the LM substrate"
+    kinds = {}
+    for name in port_archs():
+        cfg = get_config(name)
+        if cfg.kind == "classifier":
+            with pytest.raises(ValueError):
+                get_model(name)
+            continue
+        kinds[cfg.kind] = get_model(name)
+    assert sorted(kinds) == ["audio", "dense", "hybrid", "moe", "ssm", "vlm"]
+    for api in kinds.values():
         with pytest.raises(NotImplementedError, match=item):
-            get_config(name)
-        with pytest.raises(NotImplementedError, match=item):
-            get_model(name)
+            api.loss({}, {}, dtype=torch.bfloat16)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch-7b")
     with pytest.raises(ValueError):
         get_model("paper-cnn")
+    argv = ["--arch", "seamless-m4t-medium", "--rounds", "1", "--clients",
+            "2", "--select", "1", "--seq-len", "8", "--seqs-per-client", "1"]
+    with pytest.raises(KeyError, match="frames"):
+        ttrain.main(argv + ["--device", "cpu"])
+    japi = jax_model(jax_config("seamless-m4t-medium").reduced())
+    jparams = jax.tree_util.tree_map(
+        lambda a: jnp.zeros(a.shape, a.dtype),
+        jax.eval_shape(japi.init, jax.random.PRNGKey(0)))
+    with pytest.raises(KeyError, match="frames"):
+        jtrain.local_lm_update(japi, jparams, jnp.zeros((1, 9), jnp.int32),
+                               0.05, 1)
 
 
 def test_full_attention_chunking_rule():
