@@ -102,7 +102,22 @@ recomputation from each run's history, ms a replay with and without
 telemetry in turns, each sweep seed's fields bit-equal to its scanned
 run's, one field set from all four drivers, the JSONL round trip, the
 env stamp, and the ``kernels/*`` profiler ranges of a host-loop round
-with ``REPRO_TRACE=1`` (a subprocess) and without.  Phase ``lm_train``
+with ``REPRO_TRACE=1`` (a subprocess) and without.  Last, phase
+``substrate`` (alone: ``python3 chip_smoke.py substrate``): the sweep
+CLI (``repro_torch.launch.sweep --quick --host --telemetry``) into a
+temporary directory with its launches counted, its --out bit-equal to
+``run_sweep``; the one-card dry run (``repro_torch.launch.dryrun``, on
+``meta`` in worker processes) of one arch a family × the four shapes,
+and qwen2.5-3b's batch that fits 70 GB at each shape it runs;
+qwen2.5-3b at published width and depth through a bf16 train step
+(train_4k's length), a bf16 prefill_32k and a bf16 decode_32k step at
+those batches (cut for time), each's peak memory beside the dry run's
+bytes and its ms beside the roofline bound; and ``launch.multihost
+--local --task train`` for 2 steps.  ``serve_kernels`` also holds the
+decode kernel at the shapes no registered config has: dh 8, 40, 80,
+96, 192, 264, 320 and 512 (the runtime row width) and G 16 at dh 128,
+G 24 at dh 64, G 3 at dh 512 (the group split into chunks).  Phase
+``lm_train``
 also writes ``--telemetry`` and reads it back.
 Prints one JSON line per phase, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": ...}``.  Exits non-zero, with no result
@@ -126,9 +141,11 @@ check, at the reference's own kernel tolerances.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import gc
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -160,7 +177,7 @@ from repro_torch.kernels.pairwise import (  # noqa: E402
     pairwise, pairwise_plan)
 from repro_torch.kernels.hetero_entropy import entropy_rows  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention_kernel, kernel_splits)
+    decode_attention_kernel, decode_plan, kernel_splits)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import make_selector  # noqa: E402
 from repro_torch.core import head_num_classes  # noqa: E402
@@ -168,7 +185,12 @@ from repro_torch.data import make_lm_streams  # noqa: E402
 from repro_torch.examples import federated_finetune  # noqa: E402
 from repro_torch.examples import serve_batched  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch import dryrun, multihost, serve, train  # noqa: E402
+from repro_torch.launch import sweep as sweep_cli  # noqa: E402
+from repro_torch.launch.steps import (make_init_state,  # noqa: E402
+                                      make_prefill_step, make_serve_step,
+                                      make_train_step)
+from repro_torch.optim import adam  # noqa: E402
 from repro_torch.models import get_model, make_classifier  # noqa: E402
 from repro_torch.optim import tree_map  # noqa: E402
 from repro_torch.fed import (AsyncConfig, AsyncFederatedServer,  # noqa: E402
@@ -176,7 +198,8 @@ from repro_torch.fed import (AsyncConfig, AsyncFederatedServer,  # noqa: E402
 from repro_torch.scenarios import (SweepSpec,  # noqa: E402
                                    availability_mask, build_pair,
                                    make_dataset, run_async_sweep,
-                                   run_host_reference, run_sweep)
+                                   run_host_reference, run_sweep,
+                                   serial_seconds)
 from repro_torch.scenarios.registry import (  # noqa: E402
     partition_generator)
 from repro_torch.scenarios import sweep as sweep_mod  # noqa: E402
@@ -1843,10 +1866,12 @@ def decode_case(b, h, kv, dh, s, kv_dtype, dev, lengths=None, timed=False):
     lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
     scale = dh ** -0.5
     splits = kernel_splits(q, k)
+    plan = decode_plan(h // kv, dh, k.element_size())
     got = decode_attention_kernel(q, k, v, lens, scale)
     again = decode_attention_kernel(q, k, v, lens, scale)
     want = ref.decode_attention_ref(q, k, v, lens)
-    want_split = ref.decode_attention_split_ref(q, k, v, lens, splits)
+    want_split = ref.decode_attention_split_ref(q, k, v, lens, splits,
+                                                gc=plan.gc)
     dt = "bf16" if kv_dtype == torch.bfloat16 else "f32"
     tag = f"decode_attention(B{b},H{h},KV{kv},dh{dh},S{s},{dt}" + (
         f",lengths={lengths})" if lengths else ")")
@@ -1865,7 +1890,9 @@ def decode_case(b, h, kv, dh, s, kv_dtype, dev, lengths=None, timed=False):
     bit_equal = torch.equal(got, again)
     require(f"{tag}: two calls on the same input differ", bit_equal)
     out = {"case": tag, "splits": splits, "max_abs_err": err,
-           "bit_equal": bit_equal}
+           "bit_equal": bit_equal,
+           "plan": {key: getattr(plan, key) for key in (
+               "gc", "chunks", "gp", "e", "stages", "fixed")}}
     if timed:
         call = lambda k=k, v=v: decode_attention_kernel(q, k, v, lens, scale)
         out["ms"] = time_ms(call, 20)
@@ -1892,6 +1919,58 @@ def decode_case(b, h, kv, dh, s, kv_dtype, dev, lengths=None, timed=False):
         out.update(library_case(q, k, v, lens, want, kv_dtype,
                                 fused_only=k.nbytes > 2e9
                                 and kv_dtype == torch.float32))
+    return out
+
+
+#: (B, H, KV, dh, S) of each registered row width's compile-time path
+#: timed against the runtime width on the same inputs: qwen2.5-3b's
+#: heads at dh 128 (G 8), granite-moe's at dh 64 (G 2), zamba2's at dh
+#: 112 (G 1), gemma-7b's at dh 256 (G 1), each about 1 GB of bf16 K/V
+#: (2 of f32), so that a call reads device memory for 0.3-0.6 ms and
+#: the kernel, not the host, sets its time
+WIDTH_PATH_CASES = ((32, 16, 2, 128, 32768), (16, 16, 8, 64, 32768),
+                    (8, 32, 32, 112, 8192), (8, 16, 16, 256, 8192))
+
+
+def decode_width_paths(dev, rounds: int = 4) -> list:
+    """The decode kernel at each registered width with its compile-time
+    row width (the plan's) and with the runtime width forced (the plan
+    with ``fixed`` off), on the same inputs: their outputs compared, and
+    each timed by CUDA events (:func:`time_ms`, 10 calls) in
+    alternation, ``rounds`` times each, so that both see the same card
+    state."""
+    out = []
+    for b, h, kv, dh, s in WIDTH_PATH_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=dev).manual_seed(dh * 7 + b)
+            q = torch.randn((b, h, dh), generator=gen, device=dev)
+            k, v = (torch.randn((b, s, kv, dh), generator=gen,
+                                device=dev).to(dt) for _ in "kv")
+            lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+            fixed = decode_plan(h // kv, dh, k.element_size())
+            runtime = dataclasses.replace(fixed, fixed=False)
+            a = decode_attention_kernel(q, k, v, lens, dh ** -0.5, fixed)
+            r = decode_attention_kernel(q, k, v, lens, dh ** -0.5, runtime)
+            err = float((a - r).abs().max())
+            tag = (f"decode width paths (B{b},H{h},KV{kv},dh{dh},S{s},"
+                   f"{'bf16' if dt == torch.bfloat16 else 'f32'})")
+            require(f"{tag}: the runtime width differs by {err}",
+                    err <= 5e-5)
+            times = {"fixed": [], "runtime": []}
+            for _ in range(rounds):
+                for name, plan in (("fixed", fixed), ("runtime", runtime)):
+                    times[name].append(time_ms(
+                        lambda plan=plan: decode_attention_kernel(
+                            q, k, v, lens, dh ** -0.5, plan), 10))
+            fixed_ms = float(np.median(times["fixed"]))
+            runtime_ms = float(np.median(times["runtime"]))
+            out.append({"case": tag, "fixed_ms": times["fixed"],
+                        "runtime_ms": times["runtime"],
+                        "runtime_over_fixed": runtime_ms / fixed_ms,
+                        "bit_equal": bool(torch.equal(a, r)),
+                        "max_abs_err": err})
+            del k, v, a, r
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1986,11 +2065,32 @@ def serve_kernels_phase(dev):
                                   lengths=[0, 1, 300]))
         decode.append(decode_case(3, 4, 2, 112, 96, dt, dev,
                                   lengths=[1, 50, 96]))
+    # the shapes no registered config has (the runtime row width, the
+    # group split into chunks): dh 80, 96, 192 and 512 at G 4, with
+    # ragged lengths; dh 8, 40, 264 (the last lane 8 of E 16) and 320
+    # (2 f32 stages); G 16 at dh 128 (two chunks of 8), G 24 at dh 64
+    # (two of 12), G 3 at dh 512 (of 2 and 1); timed at B4 S512 beside
+    # SDPA: dh 96 G 4, dh 512 G 2, G 16 at dh 128
+    for dt in (torch.float32, torch.bfloat16):
+        for width in (80, 96, 192, 512):
+            decode.append(decode_case(3, 8, 2, width, 512, dt, dev,
+                                      lengths=[0, 1, 300]))
+        for width in (8, 40, 264, 320):
+            decode.append(decode_case(2, 4, 2, width, 200, dt, dev))
+        decode.append(decode_case(2, 32, 2, 128, 512, dt, dev,
+                                  lengths=[1, 400]))
+        decode.append(decode_case(2, 48, 2, 64, 256, dt, dev))
+        decode.append(decode_case(2, 6, 2, 512, 160, dt, dev,
+                                  lengths=[33, 160]))
+        for shape in ((4, 16, 4, 96), (4, 4, 2, 512), (4, 32, 2, 128)):
+            decode.append(decode_case(*shape, 512, dt, dev, timed=True))
     d32k = SHAPES["decode_32k"]
     for dt in (torch.float32, torch.bfloat16):   # the bf16 layer last
         decode.append(decode_case(d32k.global_batch, h, kv, dh,
                                   d32k.seq_len, dt, dev, timed=True))
         torch.cuda.empty_cache()
+
+    widths = decode_width_paths(dev)
 
     x = torch.randn((64, 151_936), device=dev) * 0.02
     kbuild.reset_launches()
@@ -2002,7 +2102,8 @@ def serve_kernels_phase(dev):
     require("entropy path: Ĥ not finite or of the wrong shape",
             ent.shape == (64,) and bool(torch.isfinite(ent).all()))
     emit({"phase": "serve_kernels", "hetero_entropy": entropy,
-          "decode_attention": decode, "entropy_path_launches": launches,
+          "decode_attention": decode, "decode_width_paths": widths,
+          "entropy_path_launches": launches,
           "seconds": time.perf_counter() - t0})
     return {"hetero_entropy": entropy, "decode_attention": decode}, launches
 
@@ -3081,25 +3182,6 @@ def sweep_cell(spec, scenario: str, selector: str, dev) -> tuple:
     return rec, launches, epi
 
 
-def serial_timing(spec, scenario: str, selector: str, dev) -> dict:
-    """The cell's seeds one after another through the scanned driver,
-    each run twice (the second without its capture): rounds/s."""
-    first = second = 0.0
-    for seed in spec.seeds:
-        srv = build_pair(dataclasses.replace(spec, seeds=(seed,)), scenario,
-                         selector, device=dev).servers[0]
-        srv.test = None
-        srv.run()
-        first += sum(srv.history["segment_wall_s"])
-        srv.run()
-        second += srv.history["segment_wall_s"][-1]
-        del srv
-    n = len(spec.seeds) * spec.rounds
-    return {"cell": f"{scenario}/{selector}",
-            "serial_rounds_per_s_first": n / first,
-            "serial_rounds_per_s_second": n / second}
-
-
 def _arrivals(srv, selected) -> np.ndarray:
     """Each tick's arrivals from the dispatches and the delay tables."""
     ticks = selected.shape[0]
@@ -3259,7 +3341,13 @@ def scenarios_phase(dev) -> tuple:
             _add(launches, n)
             _add(by_epi, e)
             out["sweep"].append(rec)
-    out["serial"] = serial_timing(SWEEP, "mixed_80_20", "hics", dev)
+    # the cell's seeds one after another through the scanned driver,
+    # each run twice (the second without its capture)
+    first, second = serial_seconds(SWEEP, "mixed_80_20", "hics", dev)
+    n = len(SWEEP.seeds) * SWEEP.rounds
+    out["serial"] = {"cell": "mixed_80_20/hics",
+                     "serial_rounds_per_s_first": n / first,
+                     "serial_rounds_per_s_second": n / second}
 
     # the async server at identity latency, B = M = K: the sync scanned
     # driver on the same data, bit for bit
@@ -3643,6 +3731,279 @@ def telemetry_phase(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the rest of the LM substrate: the sweep CLI, the one-card dry run,
+# qwen2.5-3b's bf16 steps at full width and depth, the local multi-host
+# mode
+# ---------------------------------------------------------------------------
+
+#: one arch of each family for the dry run, rwkv first: its WKV loop's
+#: train count is the longest
+SUBSTRATE_ARCHS = ("rwkv6-3b", "qwen2.5-3b", "granite-moe-1b-a400m",
+                   "pixtral-12b", "zamba2-7b", "seamless-m4t-medium")
+#: the dry run's worker processes (the card's host has 8 cores)
+SUBSTRATE_WORKERS = 6
+#: the device memory the dry run's peak must fit for qwen2.5-3b's steps:
+#: 10 GB of the card's 80 are left for what the meta pass does not hold
+#: (the allocator's rounding, the libraries' workspaces)
+SUBSTRATE_LIMIT = 70e9
+#: the batches run, at most (``fit_batch``'s top): the dry run's fit,
+#: cut for the script's time (a 32k prefill takes seconds a sequence)
+SUBSTRATE_CAPS = {"train_4k": 4, "prefill_32k": 1, "decode_32k": 128}
+
+
+def _sanitized_equal(got, want) -> bool:
+    """The JSON of the CLI's --out against a run_sweep result, every key
+    but the host-clock wall_s."""
+    want = json.loads(json.dumps(sweep_cli._sanitize(want)))
+    if got["spec"] != want["spec"]:
+        return False
+    return all(got["grid"][cell][k] == v for cell, c in want["grid"].items()
+               for k, v in c.items() if k != "wall_s")
+
+
+def substrate_sweep_cli(dev) -> tuple:
+    """``repro_torch.launch.sweep --quick --host --telemetry`` into a
+    temporary directory, with the launch counts set to 0 just before it
+    and read just after; its --out against ``run_sweep`` of the same
+    spec, bit for bit; its --bench and telemetry read back."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t = Path(tmp)
+        argv = ["--quick", "--host", "--telemetry", str(t / "tel.jsonl"),
+                "--out", str(t / "out.json"), "--bench",
+                str(t / "bench.json"), "--device", str(dev)]
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        sweep_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kbuild.launches)
+        epi = dict(kbuild.variant_launches["gram_update"]["epilogue"])
+        out = json.loads((t / "out.json").read_text())
+        bench = json.loads((t / "bench.json").read_text())
+        records = read_jsonl(t / "tel.jsonl")
+    groups = ("selection", "training", "fairness")
+    spec = sweep_cli.specs(sweep_cli.parse_args(argv), groups)[0]
+    again = run_sweep(spec, device=dev)
+    same = _sanitized_equal(out, again)
+    require("substrate sweep CLI: --out differs from run_sweep", same)
+    require("substrate sweep CLI: fused_stats was not launched",
+            launches["fused_stats"] > 0)
+    require("substrate sweep CLI: no arccos strip", epi["arccos"] > 0)
+    require("substrate sweep CLI: no telemetry records", len(records) > 0)
+    require("substrate sweep CLI: bench keys",
+            sorted(bench) == ["env", "grid", "num_clients", "rounds",
+                              "seeds", "what"])
+    return {"seconds": seconds, "bit_equal_to_run_sweep": same,
+            "telemetry_records": len(records),
+            "final_acc_mean": {c: v["final_acc_mean"]
+                               for c, v in out["grid"].items()},
+            "bench": bench["grid"], "bench_env": bench["env"]}, launches, epi
+
+
+def substrate_dryrun_submit(ex) -> tuple:
+    """Submit qwen2.5-3b's batch that fits :data:`SUBSTRATE_LIMIT` at
+    each shape it runs (first: the card's steps wait for them), then
+    the one-card dry run of one arch a family × the four shapes, to
+    worker processes (meta tensors only): the card's work of the phase
+    runs meanwhile.  Returns the futures."""
+    fits = {sh: ex.submit(dryrun.fit_batch, "qwen2.5-3b", sh,
+                          SUBSTRATE_LIMIT, cap)
+            for sh, cap in SUBSTRATE_CAPS.items()}
+    # the full-depth train and prefill counts before the short decode
+    # ones, so that the workers finish together
+    recs = {(a, sh): ex.submit(dryrun.run_combo, a, sh)
+            for sh in SHAPES for a in SUBSTRATE_ARCHS}
+    return recs, fits
+
+
+def substrate_dryrun_table(recs) -> dict:
+    """Each dry-run record's status and, where ok, its bytes, peak, fit
+    and roofline bound."""
+    table = {}
+    for (arch, sh), fut in recs.items():
+        rec = fut.result()
+        require(f"substrate dryrun {arch} {sh}: {rec['status']}",
+                rec["status"] in ("ok", "skipped"))
+        row = {"status": rec["status"]}
+        if rec["status"] == "ok":
+            r = rec["roofline"]
+            row.update({
+                "state_gb": rec["state_bytes_global"] / 1e9,
+                "cache_gb": rec.get("cache_bytes_global", 0) / 1e9,
+                "peak_gb": rec["peak_live_bytes"] / 1e9,
+                "fits_one_card": rec["fits_one_card"],
+                "floor_ms": rec["floor"]["roofline_bound_s"] * 1e3,
+                "floor_by": rec["floor"]["bottleneck"],
+                "eager_traffic_ms": r["roofline_bound_s"] * 1e3,
+                "useful_flops_ratio": r["useful_flops_ratio"],
+                "count_s": rec["count_s"]})
+        table[f"{arch}/{sh}"] = row
+    return table
+
+
+def _qwen_batch(cfg, b, s, dev, train=True):
+    gen = torch.Generator(device=dev).manual_seed(b * s)
+
+    def ints(n):
+        return torch.randint(0, cfg.vocab_size, (b, n), generator=gen,
+                             device=dev, dtype=torch.int32)
+    batch = {"tokens": ints(s)}
+    if train:
+        batch["targets"] = ints(s)
+        batch["loss_mask"] = torch.ones((b, s), device=dev)
+    return batch
+
+
+def _timed(fn, reps: int = 1):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _beside_dryrun(rec, run) -> dict:
+    """A card run {ms, peak, ...} beside the dry run's record at its
+    batch: its ms beside the step's floor (model_flops at the bf16 peak
+    against the least bytes it must move) and beside the eager-traffic
+    estimate (the meta count's FLOPs and unfused op bytes, an upper
+    estimate of the traffic, no floor); its peak memory beside the dry
+    run's bytes."""
+    floor = rec["floor"]["roofline_bound_s"] * 1e3
+    eager = rec["roofline"]["roofline_bound_s"] * 1e3
+    run = dict(run)
+    ms, peak = run.pop("ms"), run.pop("peak")
+    return {**run, "ms": ms, "floor_ms": floor, "floor_share": floor / ms,
+            "floor_by": rec["floor"]["bottleneck"],
+            "floor_flops": rec["floor"]["flops"],
+            "floor_bytes": rec["floor"]["bytes"],
+            "eager_traffic_ms": eager, "eager_traffic_share": eager / ms,
+            "peak_memory_gb": peak / 1e9,
+            "dryrun_peak_gb": rec["peak_live_bytes"] / 1e9,
+            "card_over_dryrun_peak": peak / rec["peak_live_bytes"],
+            "dryrun_state_gb": rec["state_bytes_global"] / 1e9,
+            "dryrun_cache_gb": rec.get("cache_bytes_global", 0) / 1e9}
+
+
+def substrate_qwen(dev, batches) -> dict:
+    """qwen2.5-3b at published width and depth (36 layers, d 2,048):
+    one bf16 train step (adam 1e-4, the clip, per-layer recompute) at
+    train_4k's length, a bf16 prefill_32k and a bf16 decode_32k step,
+    each at the batch the dry run fits in 70 GB (cut for time), timed
+    after a warm-up: its ms and peak memory (:func:`_beside_dryrun` puts
+    them beside the dry run's bound and bytes)."""
+    api = get_model("qwen2.5-3b")
+    cfg = api.cfg
+    out = {}
+    bf16 = torch.bfloat16
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    b, s = batches["train_4k"], SHAPES["train_4k"].seq_len
+    torch.cuda.reset_peak_memory_stats()
+    opt = adam(1e-4)
+    state = make_init_state(api, opt)(0, device=dev)
+    step = make_train_step(api, opt, dtype=bf16)
+    batch = _qwen_batch(cfg, b, s, dev)
+    state, m0 = step(state, batch)
+    (state, m1), ms = _timed(lambda: step(state, batch))
+    losses = [float(m0["loss"]), float(m1["loss"])]
+    require("substrate qwen train: non-finite loss",
+            all(np.isfinite(losses)))
+    require("substrate qwen train: the second step's loss is not lower",
+            losses[1] < losses[0])
+    out["train_4k"] = dict(ms=ms, peak=torch.cuda.max_memory_allocated(),
+                           batch=b, seq_len=s, losses=losses,
+                           grad_norm=float(m1["grad_norm"]))
+    del state, step, batch, m0, m1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = tree_map(lambda t: t.to(bf16), api.init(0, device=dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefill = make_prefill_step(api, dtype=bf16)
+    b, s = batches["prefill_32k"], SHAPES["prefill_32k"].seq_len
+    with torch.no_grad():
+        prefill(params, _qwen_batch(cfg, b, 256, dev, train=False))
+        torch.cuda.reset_peak_memory_stats()
+        batch = _qwen_batch(cfg, b, s, dev, train=False)
+        (tok, cache), ms = _timed(lambda: prefill(params, batch))
+        require("substrate qwen prefill: bad tokens",
+                tok.shape == (b, 1) and bool((tok >= 0).all())
+                and bool((tok < cfg.vocab_size).all()))
+        require("substrate qwen prefill: bad cache",
+                tuple(cache["k"].shape) == (cfg.num_layers, b, s,
+                                            cfg.num_kv_heads,
+                                            cfg.resolved_head_dim())
+                and bool(torch.isfinite(cache["k"][-1, :, -1]).all()))
+        out["prefill_32k"] = dict(ms=ms,
+                                  peak=torch.cuda.max_memory_allocated(),
+                                  batch=b, seq_len=s)
+        del cache, batch, tok
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        b, s = batches["decode_32k"], SHAPES["decode_32k"].seq_len
+        serve_step = make_serve_step(api, dtype=bf16)
+        torch.cuda.reset_peak_memory_stats()
+        cache = api.init_cache(b, s, device=dev)
+        for name in ("k", "v"):
+            cache[name].normal_()
+        token = _qwen_batch(cfg, b, 1, dev, train=False)["tokens"]
+        serve_step(params, cache, {"token": token, "pos": s - 1})
+        (tok, cache), ms = _timed(lambda: serve_step(
+            params, cache, {"token": token, "pos": s - 1}), reps=3)
+        require("substrate qwen decode: bad tokens",
+                tok.shape == (b, 1) and bool((tok >= 0).all())
+                and bool((tok < cfg.vocab_size).all()))
+        out["decode_32k"] = dict(ms=ms,
+                                 peak=torch.cuda.max_memory_allocated(),
+                                 batch=b, seq_len=s)
+        del cache, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def substrate_phase(dev) -> dict:
+    """The sweep CLI (its launches counted), the dry run (in worker
+    processes while the card works), qwen2.5-3b's bf16 steps and
+    ``launch.multihost --local --task train`` for 2 steps.  Returns the
+    sweep CLI's launches, by kernel and the strip's by epilogue."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"phase": "substrate", "card": CARD}
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(SUBSTRATE_WORKERS,
+                                                mp_context=ctx) as ex:
+        recs, fits = substrate_dryrun_submit(ex)
+        out["sweep_cli"], launches, epi = substrate_sweep_cli(dev)
+        fits = {sh: f.result() for sh, f in fits.items()}
+        batches = {sh: fit["batch"] for sh, fit in fits.items()}
+        for sh, b in batches.items():
+            require(f"substrate dryrun: no qwen2.5-3b batch of {sh} fits",
+                    b > 0)
+        runs = substrate_qwen(dev, batches)
+        out["qwen"] = {sh: _beside_dryrun(fits[sh].pop("record"), run)
+                       for sh, run in runs.items()}
+        out["dryrun"] = {"table": substrate_dryrun_table(recs),
+                         "fits": fits, "batches": batches}
+    out["dryrun"]["seconds_after_start"] = time.perf_counter() - t0
+    steps = multihost.main(["--local", "--task", "train", "--steps", "2",
+                            "--device", str(dev)])
+    require("substrate multihost: not 2 finite steps",
+            len(steps) == 2 and all(np.isfinite(m["loss"]) for m in steps))
+    out["multihost"] = steps
+    out.update({"launches": launches, "launches_by_epilogue": epi,
+                "seconds": time.perf_counter() - t0})
+    emit(out)
+    return launches, epi
+
+
 def _paths(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -3663,7 +4024,7 @@ def main(argv) -> int:
         return 2
     alone = ("graph_rounds", "lm_train", "local_algos", "finetune_example",
              "scenarios", "telemetry", "transformer_family",
-             "model_families")
+             "model_families", "substrate")
     if argv and (len(argv) > 1 or argv[0] not in alone):
         print(f"usage: chip_smoke.py [{' | '.join(alone)}]", file=sys.stderr)
         return 2
@@ -3696,7 +4057,8 @@ def main(argv) -> int:
          "transformer_family": lambda: (serve_kernels_phase(dev),
                                         transformer_family_phase(dev)),
          "model_families": lambda: (serve_kernels_phase(dev),
-                                    model_families_phase(dev))
+                                    model_families_phase(dev)),
+         "substrate": lambda: substrate_phase(dev),
          }[argv[0]]()
         for f in failures:
             print("FAILED:", f, file=sys.stderr)
@@ -3726,6 +4088,7 @@ def main(argv) -> int:
     ft_launches = finetune_example_phase(dev)
     scn_launches, scn_epilogues = scenarios_phase(dev)
     tel_launches = telemetry_phase(dev)
+    sub_launches, sub_epilogues = substrate_phase(dev)
 
     # the strip kernel's three epilogues, each counted on its own path:
     # arccos in the HiCS slice and its bf16 run, cosine in the cs run,
@@ -3787,6 +4150,12 @@ def main(argv) -> int:
                                         "max_abs_err")}
         for c in serve_cases["decode_attention"]
         if "dh112,S512" in c["case"] and "ms" in c]
+    # the shapes of the runtime row width and the chunked group, timed
+    kernels[4]["new_shapes"] = [
+        {key: c[key] for key in keys + ("bound_by", "library_ms",
+                                        "max_abs_err", "plan")}
+        for c in serve_cases["decode_attention"]
+        if "ms" in c and c["plan"]["chunks"] + (not c["plan"]["fixed"]) > 1]
     # the strip kernel per epilogue: its launches on its own path and
     # its timed case at that path's shape (arccos: the slice's K5×N50×
     # C10; cosine and l2: the baselines' K5×N50×F158,570)
@@ -3830,7 +4199,10 @@ def main(argv) -> int:
         kern["launches_transformer_family"] = family_launches[kern["name"]]
         # phase model_families: its serves, fine-tunes and example
         kern["launches_model_families"] = mf_launches[kern["name"]]
+        # phase substrate: the sweep CLI at its --quick spec
+        kern["launches_substrate"] = sub_launches[kern["name"]]
     strip["launches_scenarios_by_epilogue"] = scn_epilogues
+    strip["launches_substrate_by_epilogue"] = sub_epilogues
     # the arccos strip at the LM fine-tune's K2×N8×C151,936
     strip["lm_path"] = {key: lm_strip[key] for key in keys + (
         "bound_by", "max_abs_err", "unsplit_max_abs_err")}

@@ -22,14 +22,15 @@ import torch
 
 def resolve_device(device) -> torch.device:
     """``device`` as a :class:`torch.device`; raises for a CUDA device
-    on a machine without one, and for any type but cpu and cuda."""
+    on a machine without one, and for any type but cpu, cuda and meta
+    (shapes and dtypes with no storage, for the dry run)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run "
                 "the plain PyTorch versions on the CPU")
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device type {dev.type!r}")
     return dev
 

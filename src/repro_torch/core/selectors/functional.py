@@ -158,20 +158,6 @@ def init_state(num_clients: int, weights=None, num_classes: int = 0,
     )
 
 
-#: ROADMAP.md's queue 1 item, by title, that ports the options the
-#: port still refuses
-LM_SUBSTRATE = "queue 1: the rest of the LM substrate"
-
-
-def not_ported(name: str, value, item: str) -> NotImplementedError:
-    """The error for a value of a reference option that the port does
-    not run yet: raised, never swallowed, so that a run never differs
-    from the reference's without a word.  ``item`` is the title of the
-    ROADMAP.md item that ports it."""
-    return NotImplementedError(
-        f"{name}={value!r} is not ported yet (ROADMAP.md, {item}); "
-        "the port runs only its default")
-
 
 def round_index(t, device=None) -> torch.Tensor:
     """Round ``t`` as a 0-d int32 tensor on ``device``; a tensor is

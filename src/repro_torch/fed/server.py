@@ -53,6 +53,7 @@ draws, local update and segmented driver with its own tick step.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
@@ -209,9 +210,19 @@ class RoundGraph:
         torch.cuda.current_stream().wait_stream(self.stream)
         before = kernel_build.counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=self.stream):
-            new_carry, self.outputs = step(self.carry, self.draws)
-            _copy_into(self.carry, new_carry)
+        # a dead graph that a collection frees during the capture resets
+        # itself inside it, which invalidates the capture: collect
+        # before it, and not during it
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, stream=self.stream):
+                new_carry, self.outputs = step(self.carry, self.draws)
+                _copy_into(self.carry, new_carry)
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = kernel_build.counts_since(before)
         kernel_build.add_counts(self.launches, sign=-1)
 

@@ -43,8 +43,8 @@ SIGNATURES = {
                  (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P)),
     "hetero_entropy": ("entropy_launch", (_P, _P, _I, _I, _I, _F, _I, _P)),
     "decode_attention": ("decode_attention_launch",
-                         (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _F, _I, _P)),
+                         (_P, _P, _P, _P, _P, _P) + (_I,) * 11
+                         + (_I, _F, _I, _P)),
 }
 
 _loaded: dict = {}

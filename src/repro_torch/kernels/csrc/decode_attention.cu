@@ -44,22 +44,36 @@
 //   zero-filled without a read (cp.async's src-size 0).  Each warp
 //   keeps its own online (m, l, acc) and the 4 are merged in warp
 //   order through shared memory once, at the end.
-// * q of the block's G heads lives in registers, E = ceil(dh / 32)
-//   values a lane (G padded to GP, a power of two, with zero heads;
-//   where 32·E > dh, as at dh 112 (E = 4), the lanes at and past dh / E
-//   hold zeros in q, read no K or V and drop their accumulators), so each
-//   staged K and V value is read from shared memory once by one lane
-//   and feeds all G heads: per K row, G·E FMAs into G partial dot
-//   products; per V row, G·E FMAs into the G accumulators.  The G·RS
-//   partial dot products of RS = 32 / GP rows are summed across the
-//   warp by one reduce-scatter butterfly (31 shuffles and adds for 32
-//   sums, not 5 of each a sum, and no select: each lane lays its
-//   products out XOR its own logit index), which leaves lane l the
-//   logit of head l / RS, row l % RS.  The max and sum of the softmax
-//   are then a few shuffles within each head's lanes: every lane
-//   works, none waits.  The probabilities go to the warp through PW·GP
-//   floats of shared memory, read back as broadcast vectors, and the
-//   accumulators are rescaled only when a head's max moved.
+// * q of the block's G heads lives in registers, E values a lane
+//   (E = ceil(dh / 32) rounded up to a power of two, at least 2; G
+//   padded to GP, a power of two, with zero heads; where 32·E > dh, as
+//   at dh 112 (E = 4), the lanes at and past dh / E hold zeros in q,
+//   read no K or V and drop their accumulators), so each staged K and V
+//   value is read from shared memory once by one lane and feeds all G
+//   heads: per K row, G·E FMAs into G partial dot products; per V row,
+//   G·E FMAs into the G accumulators.  The G·RS partial dot products of
+//   RS = 32 / GP rows are summed across the warp by one reduce-scatter
+//   butterfly (31 shuffles and adds for 32 sums, not 5 of each a sum,
+//   and no select: each lane lays its products out XOR its own logit
+//   index), which leaves lane l the logit of head l / RS, row l % RS.
+//   The max and sum of the softmax are then a few shuffles within each
+//   head's lanes: every lane works, none waits.  The probabilities go
+//   to the warp through PW·GP floats of shared memory, read back as
+//   broadcast vectors, and the accumulators are rescaled only when a
+//   head's max moved.
+// * Any G and any dh that is a multiple of 8 up to 512.  The registers
+//   hold GP·E <= 32 values of q and as many accumulators a lane, so a
+//   KV head's G query heads are split into C = ceil(G / GPmax) chunks
+//   of gc = ceil(G / C) heads (GPmax = 32 / E, at most 16), one block a
+//   chunk, each reading the head's K and V once: G 16 at dh 128 is two
+//   blocks of 8.  The registered widths (dh 64, 112, 128, 256) keep a
+//   compile-time row width; any other takes the runtime width dh with
+//   the same E rule (dh 80 and 96: E 4 on 20 and 24 lanes; 192: E 8 on
+//   24; 264: E 16, the last lane 8 values), a 16-byte chunk loop for
+//   the copies, and 3 stages in the ring where they fit in shared
+//   memory (f32 rows wider than 302 values take 2, wider than 453 one).
+//   A dh that is not a multiple of 8 is refused: a row must be whole
+//   16-byte chunks, for cp.async and for the vector loads.
 // * bf16 is widened in registers, a shift or a mask a value, as the
 //   values leave shared memory.
 // * The arithmetic is f32 FMA on the CUDA cores, no tensor-core
@@ -189,79 +203,131 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[N]) {
     v[0] += __shfl_xor_sync(FULL, v[0], mask);
 }
 
-// One warp's BS / WARPS = PW positions of a tile, K rows then V rows,
-// into one stage of its ring; rows at or past len are zero-filled.  A
-// row is DH values, a whole number of 16-byte chunks (dh 112: 28 f32
-// or 14 bf16 chunks, 14 or 7 a lane).
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(T* stage, const T* kb, const T* vb,
-                                          int pos0, int len,
-                                          size_t pos_stride, int lane) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CH = DH / VEC;        // 16-byte chunks a row
-  static_assert(DH % VEC == 0 && (2 * PW * CH) % 32 == 0,
-                "a tile's rows must split into whole 16-byte chunks a lane");
-  constexpr int PER_LANE = 2 * PW * CH / 32;
-  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(stage));
+// E values of a staged row -> f32 registers, where the lane may hold
+// fewer (E = 16 on the runtime-width path: a row whose width is 8 mod
+// 16 leaves its last lane 8 values, the rest read as zeros).
+template <typename T, int E>
+__device__ __forceinline__ void load_lane(const T* p, float (&r)[E],
+                                          int nval) {
+  if constexpr (E == 16) {
+    float lo[8], hi[8] = {};
+    load_row(p, lo);
+    if (nval > 8) load_row(p + 8, hi);
 #pragma unroll
-  for (int i = 0; i < PER_LANE; ++i) {
-    const int c = lane + 32 * i;
-    const int row = c / CH, col = c % CH;
-    const int pos = pos0 + row % PW;
-    const bool ok = pos < len;
-    const T* src = (row < PW ? kb : vb) +
-                   (ok ? static_cast<size_t>(pos) * pos_stride + col * VEC : 0);
-    copy16(base + static_cast<unsigned>((row * DH + col * VEC) * sizeof(T)),
-           src, ok ? 16u : 0u);
+    for (int e = 0; e < 8; ++e) {
+      r[e] = lo[e];
+      r[e + 8] = hi[e];
+    }
+  } else {
+    load_row(p, r);
   }
 }
 
-// DH the stored row width (the row stride in device memory and in the
-// ring), E = ceil(DH / 32) the values a lane; LANES = DH / E lanes hold
-// values, the rest none.
-template <typename T, int GP, int DH_>
+// 16-byte chunk c of a warp's PW K rows then PW V rows (CH chunks a
+// row of DH values) into its stage; a row at or past len is zero-filled.
+template <typename T>
+__device__ __forceinline__ void copy_chunk(unsigned base, const T* kb,
+                                           const T* vb, int c, int ch,
+                                           int dh, int pos0, int len,
+                                           size_t pos_stride) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int row = c / ch, col = c % ch;
+  const int pos = pos0 + row % PW;
+  const bool ok = pos < len;
+  const T* src = (row < PW ? kb : vb) +
+                 (ok ? static_cast<size_t>(pos) * pos_stride + col * VEC : 0);
+  copy16(base + static_cast<unsigned>((row * dh + col * VEC) * sizeof(T)),
+         src, ok ? 16u : 0u);
+}
+
+// One warp's BS / WARPS = PW positions of a tile, K rows then V rows,
+// into one stage of its ring.  A row is DH values, a whole number of
+// 16-byte chunks (dh 112: 28 f32 or 14 bf16 chunks, 14 or 7 a lane):
+// unrolled where DH is a template constant, a loop over the lanes
+// where it is the runtime width (DH_ = 0).
+template <typename T, int DH_>
+__device__ __forceinline__ void load_tile(T* stage, const T* kb, const T* vb,
+                                          int pos0, int len,
+                                          size_t pos_stride, int lane,
+                                          int dh) {
+  constexpr int VEC = 16 / sizeof(T);
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(stage));
+  if constexpr (DH_ != 0) {
+    constexpr int CH = DH_ / VEC;     // 16-byte chunks a row
+    static_assert(DH_ % VEC == 0 && (2 * PW * CH) % 32 == 0,
+                  "a tile's rows must split into whole 16-byte chunks a lane");
+    constexpr int PER_LANE = 2 * PW * CH / 32;
+#pragma unroll
+    for (int i = 0; i < PER_LANE; ++i)
+      copy_chunk<T>(base, kb, vb, lane + 32 * i, CH, DH_, pos0, len,
+                    pos_stride);
+  } else {
+    const int ch = dh / VEC;
+    for (int c = lane; c < 2 * PW * ch; c += 32)
+      copy_chunk<T>(base, kb, vb, c, ch, dh, pos0, len, pos_stride);
+  }
+}
+
+// The block's shared memory for row width dh: each warp's ring of
+// STAGES stages of PW K rows and PW V rows in T, then each warp's PW·GP
+// probabilities.  The merge of the warps' (acc, m, l) reuses the ring,
+// or runs past it where the ring is the smaller (few stages, few
+// lanes), so the probabilities start after the larger of the two.
+template <typename T, int GP, int STAGES>
 struct Layout {
-  static constexpr int DH = DH_;
-  static constexpr int E = (DH + 31) / 32;
-  static constexpr int LANES = DH / E;
-  static_assert(E * LANES == DH, "E = ceil(DH / 32) must divide DH");
-  static constexpr int STAGE = 2 * PW * DH;   // elements of T
-  static constexpr size_t RING = sizeof(T) * WARPS * STAGES * STAGE;
-  static constexpr size_t PROBS = sizeof(float) * WARPS * PW * GP;
-  // the warps' (acc, m, l), in the ring once every warp is done with it
-  static constexpr size_t MERGE = sizeof(float) * WARPS * GP * (DH + 2);
-  static_assert(MERGE <= RING, "merge area must fit in the ring");
-  static constexpr size_t SMEM = RING + PROBS;
+  __host__ __device__ static constexpr size_t stage(int dh) {
+    return static_cast<size_t>(2 * PW) * dh;   // elements of T
+  }
+  __host__ __device__ static constexpr size_t ring(int dh) {
+    return sizeof(T) * WARPS * STAGES * stage(dh);
+  }
+  __host__ __device__ static constexpr size_t merge(int dh) {
+    return sizeof(float) * WARPS * GP * (dh + 2);
+  }
+  __host__ __device__ static constexpr size_t probs_at(int dh) {
+    return ring(dh) > merge(dh) ? ring(dh) : merge(dh);
+  }
+  __host__ __device__ static constexpr size_t smem(int dh) {
+    return probs_at(dh) + sizeof(float) * WARPS * PW * GP;
+  }
 };
 
-// Block (bh, split) of the (B·KV) × P grid, bh = b·KV + h: the partial
-// of split `split` of (batch b, KV head h), or its output when P = 1.
-template <typename T, int GP, int DH_>
+// Block (bhc, split) of the (B·KV·C) × P grid, bhc = (b·KV + h)·C + c:
+// the partial of split `split` of chunk c of (batch b, KV head h), or
+// its output when P = 1.  Chunk c holds the query heads
+// [c·gc, min((c+1)·gc, g)) of the KV head's g (C = ceil(g / gc) chunks;
+// one chunk, gc = g, for every registered config).  DH_ is the stored
+// row width as a template constant, or 0 for the runtime width dh; E
+// the values a lane (E | dh wherever DH_ is set).
+template <typename T, int GP, int E, int DH_, int STAGES>
 __global__ void __launch_bounds__(THREADS, 3)
 decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ lengths,
                     float* __restrict__ out, float* __restrict__ ws,
-                    int s_len, int kv, int g, int splits, float scale) {
-  using L = Layout<T, GP, DH_>;
-  constexpr int DH = L::DH;
-  constexpr int E = L::E;
-  constexpr int LANES = L::LANES;
+                    int s_len, int kv, int g, int gc, int chunks, int dh,
+                    int splits, float scale) {
+  using L = Layout<T, GP, STAGES>;
+  const int DH = DH_ ? DH_ : dh;
   constexpr int RS = PW < 32 / GP ? PW : 32 / GP;  // rows a logit step
   constexpr int NS = PW / RS;                      // logit steps a tile
   constexpr int N = GP * RS;                       // partial sums a step
   constexpr int DUP = 32 / N;                      // lanes sharing a logit
   constexpr int GL = 32 / GP;                      // lanes of one head
+  static_assert(DH_ == 0 || DH_ % E == 0, "E must divide a fixed DH");
 
   extern __shared__ float4 smem4[];
   T* ring = reinterpret_cast<T*>(smem4);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  T* my_ring = ring + warp * STAGES * L::STAGE;
-  float* probs = reinterpret_cast<float*>(
-                     reinterpret_cast<char*>(smem4) + L::RING) +
+  const int stage = static_cast<int>(L::stage(DH));
+  T* my_ring = ring + warp * STAGES * stage;
+  float* probs = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) +
+                                          L::probs_at(DH)) +
                  warp * PW * GP;
 
-  const int bh = blockIdx.x / splits, split = blockIdx.x - bh * splits;
+  const int bhc = blockIdx.x / splits, split = blockIdx.x - bhc * splits;
+  const int bh = bhc / chunks, c = bhc - bh * chunks;
   const int h = bh % kv, b = bh / kv;
+  const int gcount = min(gc, g - c * gc);   // the chunk's heads
   const int len = min(max(lengths[b], 0), s_len);
   const int tiles = (s_len + BS - 1) / BS;
   const int t0 = static_cast<int>(static_cast<long long>(tiles) * split /
@@ -270,22 +336,25 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
                                   (split + 1) / splits);
   const int n_tiles = max(0, min(t1, (len + BS - 1) / BS) - t0);
 
-  // this lane's E values lie in the row (every lane's where 32·E = dh)
-  const bool holds = LANES == 32 || lane < LANES;
+  // this lane's values: [lane·E, lane·E + nval) of the row (nval = E or
+  // 0 wherever E | dh; the runtime width's last lane may hold 8 of 16)
+  const int nval = min(max(DH - lane * E, 0), E);
+  const bool holds = nval > 0;
   const int idx = lane / DUP;   // this lane's logit: head idx / RS,
   const int row_of = idx % RS;  // row s·RS + idx % RS of the warp's PW
-  // The g query heads of this KV head are contiguous in q (B, H, dh).
-  // Register gg holds head gg XOR (idx / RS), and the partial sum of
-  // register r row r XOR row_of, so that partial (gg, r) holds logical
-  // value (gg·RS + r) XOR idx, as reduce_scatter takes it.
+  // The chunk's query heads are contiguous in q (B, H, dh).  Register
+  // gg holds head gg XOR (idx / RS), and the partial sum of register r
+  // row r XOR row_of, so that partial (gg, r) holds logical value
+  // (gg·RS + r) XOR idx, as reduce_scatter takes it.
   float qr[GP][E];
-  const float* qb = q + static_cast<size_t>(bh) * g * DH + lane * E;
+  const size_t head_row = static_cast<size_t>(bh) * g + c * gc;
+  const float* qb = q + head_row * DH + lane * E;
 #pragma unroll
   for (int gg = 0; gg < GP; ++gg) {
     const int head = gg ^ (idx / RS);
 #pragma unroll
     for (int e = 0; e < E; ++e)
-      qr[gg][e] = head < g && holds ? qb[head * DH + e] : 0.0f;
+      qr[gg][e] = head < gcount && e < nval ? qb[head * DH + e] : 0.0f;
   }
 
   float acc[GP][E];
@@ -304,8 +373,8 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < n_tiles)
-      load_tile<T, DH>(my_ring + i * L::STAGE, kb, vb, pos_w + i * BS, len,
-                       pos_stride, lane);
+      load_tile<T, DH_>(my_ring + i * stage, kb, vb, pos_w + i * BS, len,
+                        pos_stride, lane, DH);
     copy_commit();
   }
 
@@ -313,12 +382,12 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
     __syncwarp();  // every lane is done with tile i−1's stage and probs
     const int nxt = i + STAGES - 1;
     if (nxt < n_tiles)
-      load_tile<T, DH>(my_ring + (nxt % STAGES) * L::STAGE, kb, vb,
-                       pos_w + nxt * BS, len, pos_stride, lane);
+      load_tile<T, DH_>(my_ring + (nxt % STAGES) * stage, kb, vb,
+                        pos_w + nxt * BS, len, pos_stride, lane, DH);
     copy_commit();
     copy_wait<STAGES - 1>();  // this lane's copies of tile i landed
     __syncwarp();             // and every lane's
-    const T* ks = my_ring + (i % STAGES) * L::STAGE;
+    const T* ks = my_ring + (i % STAGES) * stage;
     const T* vs = ks + PW * DH;
     const int pos0 = pos_w + i * BS;
 
@@ -331,7 +400,9 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < RS; ++r) {
         float kr[E] = {};
-        if (holds) load_row(ks + (s * RS + (r ^ row_of)) * DH + lane * E, kr);
+        if (holds)
+          load_lane<T, E>(ks + (s * RS + (r ^ row_of)) * DH + lane * E, kr,
+                          nval);
 #pragma unroll
         for (int gg = 0; gg < GP; ++gg) {
           float d = qr[gg][0] * kr[0];
@@ -384,7 +455,7 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < PW; ++j) {
       float vr[E] = {};
-      if (holds) load_row(vs + j * DH + lane * E, vr);
+      if (holds) load_lane<T, E>(vs + j * DH + lane * E, vr, nval);
       float pj[GP];
       load_probs<GP>(probs + j * GP, pj);
 #pragma unroll
@@ -400,19 +471,17 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
   float* macc = reinterpret_cast<float*>(smem4);  // [WARPS][GP][DH]
   float* mm = macc + WARPS * GP * DH;              // [WARPS][GP]
   float* ml = mm + WARPS * GP;
-  if (holds) {
 #pragma unroll
-    for (int gg = 0; gg < GP; ++gg)
+  for (int gg = 0; gg < GP; ++gg)
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        macc[(warp * GP + gg) * DH + lane * E + e] = acc[gg][e];
-  }
+    for (int e = 0; e < E; ++e)
+      if (e < nval) macc[(warp * GP + gg) * DH + lane * E + e] = acc[gg][e];
   if (lane % GL == 0) {
     mm[warp * GP + lane / GL] = m;
     ml[warp * GP + lane / GL] = l;
   }
   __syncthreads();
-  const int gdh = g * DH;
+  const int gdh = gcount * DH;
   for (int i = threadIdx.x; i < gdh; i += THREADS) {
     const int gg = i / DH, d = i - gg * DH;
     float mx = NEG_INF;
@@ -426,30 +495,33 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
       as += macc[(w * GP + gg) * DH + d] * wt;
     }
     if (splits == 1) {
-      out[static_cast<size_t>(bh) * gdh + i] = as / fmaxf(ls, 1e-30f);
+      out[head_row * DH + i] = as / fmaxf(ls, 1e-30f);
     } else {
-      float* rec = ws + static_cast<size_t>(blockIdx.x) * (gdh + 2 * g);
+      // a record of gc heads a block, whatever the chunk's count
+      float* rec = ws + static_cast<size_t>(blockIdx.x) * gc * (DH + 2);
       rec[i] = as;
       if (d == 0) {
-        rec[gdh + gg] = mx;
-        rec[gdh + g + gg] = ls;
+        rec[gc * DH + gg] = mx;
+        rec[gc * DH + gc + gg] = ls;
       }
     }
   }
 }
 
-// Block (bh, c): outputs [c·MERGE_THREADS, (c+1)·MERGE_THREADS) of
-// (batch, KV head) bh, one a thread, each the P partials (acc[g, dh],
-// m[g], l[g]) of ws merged in increasing split order.  The loop over
-// the splits is unrolled so that its loads are in flight together.
+// Block (bhc, y): outputs [y·MERGE_THREADS, (y+1)·MERGE_THREADS) of
+// chunk c of (batch, KV head) bh, bhc = bh·C + c, one a thread, each the
+// P partials (acc[gc, dh], m[gc], l[gc]) of ws merged in increasing
+// split order.  The loop over the splits is unrolled so that its loads
+// are in flight together.
 __global__ void __launch_bounds__(MERGE_THREADS)
 decode_merge_kernel(const float* __restrict__ ws, float* __restrict__ out,
-                    int splits, int g, int dh) {
-  const int gdh = g * dh, rec = gdh + 2 * g;
+                    int splits, int g, int gc, int chunks, int dh) {
+  const int bh = blockIdx.x / chunks, c = blockIdx.x - bh * chunks;
+  const int gdh = min(gc, g - c * gc) * dh, rec = gc * (dh + 2);
   const int i = blockIdx.y * MERGE_THREADS + threadIdx.x;
   if (i >= gdh) return;
   const float* r0 = ws + static_cast<size_t>(blockIdx.x) * splits * rec;
-  const float* mp = r0 + gdh + i / dh;  // m of head i / dh, split 0
+  const float* mp = r0 + gc * dh + i / dh;  // m of head i / dh, split 0
   float mx = NEG_INF;
 #pragma unroll 4
   for (int p = 0; p < splits; ++p) mx = fmaxf(mx, mp[p * rec]);
@@ -457,75 +529,108 @@ decode_merge_kernel(const float* __restrict__ ws, float* __restrict__ out,
 #pragma unroll 4
   for (int p = 0; p < splits; ++p) {
     const float wt = expf(mp[p * rec] - mx);
-    ls += mp[p * rec + g] * wt;
+    ls += mp[p * rec + gc] * wt;
     as += r0[p * rec + i] * wt;
   }
-  out[static_cast<size_t>(blockIdx.x) * gdh + i] = as / fmaxf(ls, 1e-30f);
+  out[(static_cast<size_t>(bh) * g + c * gc) * dh + i] =
+      as / fmaxf(ls, 1e-30f);
 }
 
-template <typename T, int GP, int DH>
+template <typename T, int GP, int E, int DH, int STAGES>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           void* out, void* ws, int b, int s_len, int kv, int g, int splits,
-           float scale, cudaStream_t st) {
-  constexpr size_t smem = Layout<T, GP, DH>::SMEM;
+           void* out, void* ws, int b, int s_len, int kv, int g, int gc,
+           int chunks, int dh, int splits, float scale, cudaStream_t st) {
+  const size_t smem = Layout<T, GP, STAGES>::smem(dh);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_split_kernel<T, GP, DH>,
+      decode_split_kernel<T, GP, E, DH, STAGES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_split_kernel<T, GP, DH><<<b * kv * splits, THREADS, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(lengths),
-      static_cast<float*>(out), static_cast<float*>(ws), s_len, kv, g,
-      splits, scale);
+  decode_split_kernel<T, GP, E, DH, STAGES>
+      <<<b * kv * chunks * splits, THREADS, smem, st>>>(
+          static_cast<const float*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const int*>(lengths),
+          static_cast<float*>(out), static_cast<float*>(ws), s_len, kv, g,
+          gc, chunks, dh, splits, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const dim3 merge_grid(b * kv, (g * DH + MERGE_THREADS - 1) / MERGE_THREADS);
+  const dim3 merge_grid(b * kv * chunks,
+                        (gc * dh + MERGE_THREADS - 1) / MERGE_THREADS);
   decode_merge_kernel<<<merge_grid, MERGE_THREADS, 0, st>>>(
-      static_cast<const float*>(ws), static_cast<float*>(out), splits, g, DH);
+      static_cast<const float*>(ws), static_cast<float*>(out), splits, g,
+      gc, chunks, dh);
   return static_cast<int>(cudaGetLastError());
 }
 
-// G padded to GP in {2, 4, 8, 16}; dh in {64, 112, 128, 256}, E =
-// ceil(dh / 32); GP·E <= 32 (q and the accumulators stay in registers).
-// At dh 256 the f32 ring is 192 KB, so an SM holds one block of it
-// (bf16: two).  dh 112 (zamba2's shared attention) takes E = 4 as dh 128
-// does, on 28 of the 32 lanes.
+// The plan comes from kernels/decode_attention.py: decode_plan.  GP is
+// the chunk's gc padded to a power of two in {2, 4, 8, 16}, E = max(2,
+// ceil(dh / 32) rounded up to a power of two), GP·E <= 32 (q and the
+// accumulators stay in registers).  The registered widths dh 64, 112,
+// 128 and 256 (fixed = 1) keep their compile-time row width and 3
+// stages; every other dh (a multiple of 8 up to 512) takes the runtime
+// width, with the stages that fit in shared memory (f32 past dh 302:
+// 2, past 453: 1).
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v,
              const void* lengths, void* out, void* ws, int b, int s_len,
-             int kv, int g, int dh, int splits, float scale,
+             int kv, int g, int gc, int chunks, int dh, int gp, int e,
+             int stages, int fixed, int splits, float scale,
              cudaStream_t st) {
-  const int gp = g <= 2 ? 2 : g <= 4 ? 4 : g <= 8 ? 8 : 16;
-#define DECODE_LAUNCH(GP, DH)                                         \
-  return launch<T, GP, DH>(q, k, v, lengths, out, ws, b, s_len, kv, g, \
-                           splits, scale, st)
-  if (g >= 1 && g <= 16 && dh == 64) {
-    switch (gp) {
-      case 2: DECODE_LAUNCH(2, 64);
-      case 4: DECODE_LAUNCH(4, 64);
-      case 8: DECODE_LAUNCH(8, 64);
-      default: DECODE_LAUNCH(16, 64);
+#define DECODE_LAUNCH(GP, E, DH, STAGES)                                  \
+  return launch<T, GP, E, DH, STAGES>(q, k, v, lengths, out, ws, b, s_len, \
+                                      kv, g, gc, chunks, dh, splits, scale, \
+                                      st)
+  if (fixed && stages == 3) {
+    if (dh == 64 && e == 2) {
+      switch (gp) {
+        case 2: DECODE_LAUNCH(2, 2, 64, 3);
+        case 4: DECODE_LAUNCH(4, 2, 64, 3);
+        case 8: DECODE_LAUNCH(8, 2, 64, 3);
+        case 16: DECODE_LAUNCH(16, 2, 64, 3);
+      }
+    }
+    if (dh == 112 && e == 4) {
+      switch (gp) {
+        case 2: DECODE_LAUNCH(2, 4, 112, 3);
+        case 4: DECODE_LAUNCH(4, 4, 112, 3);
+        case 8: DECODE_LAUNCH(8, 4, 112, 3);
+      }
+    }
+    if (dh == 128 && e == 4) {
+      switch (gp) {
+        case 2: DECODE_LAUNCH(2, 4, 128, 3);
+        case 4: DECODE_LAUNCH(4, 4, 128, 3);
+        case 8: DECODE_LAUNCH(8, 4, 128, 3);
+      }
+    }
+    if (dh == 256 && e == 8) {
+      switch (gp) {
+        case 2: DECODE_LAUNCH(2, 8, 256, 3);
+        case 4: DECODE_LAUNCH(4, 8, 256, 3);
+      }
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (fixed || dh % 8 || dh > 32 * e)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (stages == 3) {
+    switch (e * 100 + gp) {
+      case 202: DECODE_LAUNCH(2, 2, 0, 3);
+      case 204: DECODE_LAUNCH(4, 2, 0, 3);
+      case 208: DECODE_LAUNCH(8, 2, 0, 3);
+      case 216: DECODE_LAUNCH(16, 2, 0, 3);
+      case 402: DECODE_LAUNCH(2, 4, 0, 3);
+      case 404: DECODE_LAUNCH(4, 4, 0, 3);
+      case 408: DECODE_LAUNCH(8, 4, 0, 3);
+      case 802: DECODE_LAUNCH(2, 8, 0, 3);
+      case 804: DECODE_LAUNCH(4, 8, 0, 3);
+      case 1602: DECODE_LAUNCH(2, 16, 0, 3);
     }
   }
-  if (g >= 1 && g <= 8 && dh == 112) {
-    switch (gp) {
-      case 2: DECODE_LAUNCH(2, 112);
-      case 4: DECODE_LAUNCH(4, 112);
-      default: DECODE_LAUNCH(8, 112);
-    }
-  }
-  if (g >= 1 && g <= 8 && dh == 128) {
-    switch (gp) {
-      case 2: DECODE_LAUNCH(2, 128);
-      case 4: DECODE_LAUNCH(4, 128);
-      default: DECODE_LAUNCH(8, 128);
-    }
-  }
-  if (g >= 1 && g <= 4 && dh == 256) {
-    switch (gp) {
-      case 2: DECODE_LAUNCH(2, 256);
-      default: DECODE_LAUNCH(4, 256);
-    }
+  // the f32 ring of a row wider than 302 values fits 2 stages, of one
+  // wider than 453 one (bf16 fits 3 up to 512)
+  if constexpr (sizeof(T) == 4) {
+    if (e == 16 && gp == 2 && stages == 2) DECODE_LAUNCH(2, 16, 0, 2);
+    if (e == 16 && gp == 2 && stages == 1) DECODE_LAUNCH(2, 16, 0, 1);
   }
 #undef DECODE_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
@@ -535,18 +640,23 @@ int dispatch(const void* q, const void* k, const void* v,
 
 // q (b, kv·g, dh) f32; k, v (b, s_len, kv, dh) f32 (bf16 == 0) or bf16;
 // lengths (b,) int32; out (b, kv·g, dh) f32; ws the splits' partials,
-// (b·kv·splits, g·(dh + 2)) f32, unused (may be null) when splits == 1.
-// dh 64, 112, 128 or 256, GP·dh <= 1024 (the wrapper checks), every pointer
-// 16-byte aligned, 1 <= splits <= ceil(s_len / 32).
+// (b·kv·chunks·splits, gc·(dh + 2)) f32, unused (may be null) when
+// splits == 1.  The plan (gc heads a chunk, chunks = ceil(g / gc), GP,
+// E, stages, fixed) is decode_plan's; every pointer 16-byte aligned,
+// 1 <= splits <= ceil(s_len / 32).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* lengths,
                                        void* out, void* ws, int b, int s_len,
-                                       int kv, int g, int dh, int splits,
-                                       float scale, int bf16, void* stream) {
+                                       int kv, int g, int gc, int chunks,
+                                       int dh, int gp, int e, int stages,
+                                       int fixed, int splits, float scale,
+                                       int bf16, void* stream) {
   if (b == 0 || kv == 0 || g == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? dispatch<uint16_t>(q, k, v, lengths, out, ws, b, s_len, kv, g,
-                                   dh, splits, scale, st)
+                                   gc, chunks, dh, gp, e, stages, fixed,
+                                   splits, scale, st)
               : dispatch<float>(q, k, v, lengths, out, ws, b, s_len, kv, g,
-                                dh, splits, scale, st);
+                                gc, chunks, dh, gp, e, stages, fixed, splits,
+                                scale, st);
 }

@@ -4,11 +4,15 @@ Replaces the TPU kernel ``src/repro/kernels/decode_attention.py:
 _decode_kernel`` (via ``decode_attention_pallas``) with
 ``csrc/decode_attention.cu``, a flash-decoding kernel for the H100: S
 is split into :func:`decode_splits` runs of 32-position tiles, one
-block per (batch, KV head, split); each warp streams its rows of every
-tile through a 3-stage ``cp.async`` ring in the cache's stored type and
-applies each staged K and V value, read once, to all G query heads held
-in registers; a second launch merges the splits' partial (m, l, acc)
-in increasing split order.  It reads the valid part of K and V once,
+block per (batch, KV head, chunk of its query heads, split); each warp
+streams its rows of every tile through a ``cp.async`` ring in the
+cache's stored type and applies each staged K and V value, read once,
+to all the chunk's query heads held in registers; a second launch
+merges the splits' partial (m, l, acc) in increasing split order.
+:func:`decode_plan` chunks a KV head's G query heads so that the
+registers hold them (one chunk for every registered config) and picks
+the lane width and the ring's stages for any dh that is a multiple of
+8 up to 512; a dh off the 16-byte rows is refused.  It reads the valid part of K and V once,
 so on the H100 it is bound by memory bytes.  The source's note says
 what each part of the design does about that.
 
@@ -21,6 +25,8 @@ the plain version NaN (a softmax over all -inf).
 version of the split itself.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -40,13 +46,31 @@ MIN_SPLIT_TILES = 2
 #: the share of whole waves the blocks must fill before more splits
 #: stop paying for themselves
 WAVE_FILL = 0.9
-#: the stored row widths the kernel is built for; a lane holds
-#: E = ceil(dh / 32) values (dh 112, zamba2's shared attention: E = 4
-#: on 28 lanes, the other 4 hold zeros)
+#: the stored row widths the kernel is built for with a compile-time
+#: row width; any other dh that is a multiple of 8 up to
+#: :data:`MAX_HEAD_DIM` takes the runtime width
 HEAD_DIMS = (64, 112, 128, 256)
-#: GP·dh the registers hold (q and the accumulators, 32 floats a lane;
-#: zamba2's G 1 -> GP 2 needs 2 · 112 = 224)
+MAX_HEAD_DIM = 512
+#: GP·32·E, the values of q (and of the accumulators) the registers of
+#: a warp hold: 32 floats a lane (zamba2's G 1 -> GP 2 at E 4: 256)
 MAX_GROUP_WIDTH = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How the kernel lays out one KV head's G query heads of width dh:
+    ``chunks`` blocks of ``gc`` heads (the last may hold fewer), each
+    padded to ``gp``; ``e`` values a lane; ``stages`` tiles in each
+    warp's ring; ``fixed`` for the registered widths' compile-time
+    row."""
+    g: int
+    dh: int
+    gc: int
+    chunks: int
+    gp: int
+    e: int
+    stages: int
+    fixed: bool
 
 
 def group_pad(g: int) -> int:
@@ -54,13 +78,51 @@ def group_pad(g: int) -> int:
     return max(2, 1 << (g - 1).bit_length())
 
 
+def lane_width(dh: int) -> int:
+    """E, the values of a row a lane holds: ceil(dh / 32) rounded up to
+    a power of two, at least 2 (dh 64: 2; 80 to 128: 4; 192, 256: 8;
+    264 to 512: 16)."""
+    return max(2, 1 << (-(-dh // 32) - 1).bit_length())
+
+
+def _smem(gp: int, dh: int, elt: int, stages: int) -> int:
+    ring = WARPS * stages * 2 * PW * dh * elt
+    merge = 4 * WARPS * gp * (dh + 2)
+    return max(ring, merge) + WARPS * PW * gp * 4
+
+
+def decode_plan(g: int, dh: int, elt: int) -> DecodePlan:
+    """The kernel's plan for G query heads a KV head at width dh, K/V
+    of ``elt`` bytes a value.  Raises for a dh the kernel does not take:
+    one that is not a multiple of 8 (a row must be whole 16-byte chunks,
+    for ``cp.async`` and the vector loads) or is past 512."""
+    if g < 1:
+        raise ValueError(f"need G >= 1, got {g}")
+    if dh % 8 or not 0 < dh <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"the kernel copies K/V rows in 16-byte chunks, so it takes a "
+            f"dh that is a multiple of 8 up to {MAX_HEAD_DIM}, got dh={dh}")
+    e = lane_width(dh)
+    gp_max = min(16, MAX_GROUP_WIDTH // (32 * e))
+    chunks = -(-g // gp_max)
+    gc = -(-g // chunks)
+    gp = group_pad(gc)
+    stages = next((st for st in (STAGES, 2, 1)
+                   if _smem(gp, dh, elt, st) <= SMEM_LIMIT), 0)
+    if not stages:
+        raise ValueError(f"G={g}, dh={dh} needs {_smem(gp, dh, elt, 1)} "
+                         f"bytes of shared memory, over {SMEM_LIMIT}")
+    return DecodePlan(g, dh, gc, chunks, gp, e, stages, dh in HEAD_DIMS)
+
+
 def smem_bytes(g: int, dh: int, elt: int) -> int:
-    """The kernel's dynamic shared memory, as ``Layout::SMEM`` in the
-    source: each warp's ring of STAGES stages of PW K rows and PW V rows
-    in the stored type (``elt`` bytes a value), then each warp's
-    probabilities (PW·GP f32).  The merge of the warps reuses the
-    ring."""
-    return WARPS * STAGES * 2 * PW * dh * elt + WARPS * PW * group_pad(g) * 4
+    """The kernel's dynamic shared memory, as ``Layout::smem`` in the
+    source: each warp's ring of the plan's stages of PW K rows and PW V
+    rows in the stored type (``elt`` bytes a value), or the warps'
+    merge area where that is larger, then each warp's probabilities
+    (PW·GP f32)."""
+    plan = decode_plan(g, dh, elt)
+    return _smem(plan.gp, dh, elt, plan.stages)
 
 
 def resident_blocks(g: int, dh: int, elt: int) -> int:
@@ -71,7 +133,7 @@ def resident_blocks(g: int, dh: int, elt: int) -> int:
 
 
 def decode_splits(b: int, kv: int, s: int, sms: int = 132,
-                  resident: int = 2) -> int:
+                  resident: int = 2, chunks: int = 1) -> int:
     """P, the runs of tiles S is split into: the fewest that give at
     least one full wave of ``sms · resident`` blocks and fill whole
     waves to :data:`WAVE_FILL` (every block does the same work, so a
@@ -80,7 +142,7 @@ def decode_splits(b: int, kv: int, s: int, sms: int = 132,
     tiles = -(-s // BS)
     most = max(1, tiles // MIN_SPLIT_TILES)
     slots = sms * resident
-    units = max(1, b * kv)
+    units = max(1, b * kv * chunks)
     p = max(1, -(-slots // units))
     while p < most:
         blocks = units * p
@@ -94,16 +156,20 @@ def kernel_splits(q: torch.Tensor, k: torch.Tensor) -> int:
     """:func:`decode_splits` for these operands on their card."""
     b, h, dh = q.shape
     s, kv = k.shape[1], k.shape[2]
+    plan = decode_plan(h // kv, dh, k.element_size())
     return decode_splits(b, kv, s, build.sm_count(q.device.index),
-                         resident_blocks(h // kv, dh, k.element_size()))
+                         resident_blocks(h // kv, dh, k.element_size()),
+                         plan.chunks)
 
 
 def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, lengths: torch.Tensor,
-                            scale: float) -> torch.Tensor:
+                            scale: float,
+                            plan: DecodePlan | None = None) -> torch.Tensor:
     """Launch the kernel: q (B, H, dh) f32, k/v (B, S, KV, dh) both f32
     or both bf16, lengths (B,) int32 -> (B, H, dh) f32, S split into
-    :func:`kernel_splits` runs of tiles."""
+    :func:`kernel_splits` runs of tiles, laid out by ``plan``
+    (:func:`decode_plan`'s when None)."""
     b, h, dh = q.shape
     s, kv = k.shape[1], k.shape[2]
     if k.dtype not in (torch.float32, torch.bfloat16):
@@ -115,26 +181,24 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     if h % kv:
         raise ValueError(f"need H % KV == 0, got H={h} KV={kv}")
     g = h // kv
-    if dh not in HEAD_DIMS or group_pad(g) * dh > MAX_GROUP_WIDTH:
-        raise ValueError(
-            f"the kernel holds q and the accumulators of the G={g} heads "
-            f"in registers: it takes dh in {HEAD_DIMS} and "
-            f"G·dh <= {MAX_GROUP_WIDTH} (G padded to {group_pad(g)}), got "
-            f"dh={dh}")
-    elt = k.element_size()
-    if smem_bytes(g, dh, elt) > SMEM_LIMIT:
-        raise ValueError(f"G={g}, dh={dh} needs {smem_bytes(g, dh, elt)} "
-                         f"bytes of shared memory, over {SMEM_LIMIT}")
+    if plan is None:
+        plan = decode_plan(g, dh, k.element_size())
+    if (plan.g, plan.dh) != (g, dh):
+        raise ValueError(f"the plan is for G={plan.g} dh={plan.dh}, "
+                         f"not G={g} dh={dh}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
     splits = kernel_splits(q, k)
     out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
-    ws = (torch.empty((b * kv * splits, g * (dh + 2)), dtype=torch.float32,
-                      device=q.device) if splits > 1 else None)
+    ws = (torch.empty((b * kv * plan.chunks * splits, plan.gc * (dh + 2)),
+                      dtype=torch.float32, device=q.device)
+          if splits > 1 else None)
     build.launch("decode_attention", q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 None if ws is None else ws.data_ptr(), b, s, kv, g, dh,
-                 splits, float(scale), int(k.dtype == torch.bfloat16))
+                 None if ws is None else ws.data_ptr(), b, s, kv, g,
+                 plan.gc, plan.chunks, dh, plan.gp, plan.e, plan.stages,
+                 int(plan.fixed), splits, float(scale),
+                 int(k.dtype == torch.bfloat16))
     return out
 
 

@@ -412,11 +412,25 @@ def merge_decode_partials(m: torch.Tensor, l: torch.Tensor,
 
 def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, lengths, splits: int,
-                               scale: float | None = None) -> torch.Tensor:
+                               scale: float | None = None,
+                               gc: int | None = None) -> torch.Tensor:
     """GQA one-token decode attention as the kernel splits it: the
     partial (m, l, acc) of each of ``splits`` runs of 32-position tiles
-    (:func:`decode_split_ranges`), merged in increasing split order.
-    Same arguments and result as :func:`decode_attention_ref`, except
-    that a row of length 0 is 0, as the kernel's."""
-    return merge_decode_partials(*decode_split_partials(
-        q, k, v, lengths, splits, scale))
+    (:func:`decode_split_ranges`), merged in increasing split order,
+    for each chunk of ``gc`` query heads of a KV head (the kernel's
+    chunk plan, ``kernels.decode_attention.decode_plan``; all G heads
+    in one chunk by default).  Same arguments and result as
+    :func:`decode_attention_ref`, except that a row of length 0 is 0,
+    as the kernel's."""
+    b, h, dh = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    gc = g if gc is None else gc
+    qg = q.reshape(b, kv, g, dh)
+    outs = []
+    for c0 in range(0, g, gc):
+        qc = qg[:, :, c0:c0 + gc]
+        out = merge_decode_partials(*decode_split_partials(
+            qc.reshape(b, -1, dh), k, v, lengths, splits, scale))
+        outs.append(out.reshape(b, kv, -1, dh))
+    return torch.cat(outs, dim=2).reshape(b, h, dh)

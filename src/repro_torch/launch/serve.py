@@ -70,8 +70,8 @@ def generate(api, params, batch: dict, gen: int) -> dict:
     (the positions decoded so far) and host-clock times that end in a
     device synchronize."""
     dev = batch["tokens"].device
-    prefill = make_prefill_step(api, cache_extra=gen)
-    serve = make_serve_step(api)
+    prefill = make_prefill_step(api, dtype=torch.float32, cache_extra=gen)
+    serve = make_serve_step(api, dtype=torch.float32)
     _sync(dev)
     t0 = time.perf_counter()
     token, cache = prefill(params, batch)

@@ -7,16 +7,16 @@ frontend is a stub: the model reads precomputed frame embeddings
 self-attention in query chunks of 128, so F is at most 128 or a
 multiple of it) feeds every decoder layer's cross-attention, whose K/V
 the decoder computes per layer from the encoder's output.  Compute is
-f32.  The prefill's cache holds the self-attention K/V (with
+in ``dtype`` (f32 unless the caller asks for bf16; the frames are cast
+to it, every weight to the activations' dtype where it is used).  The prefill's cache holds the self-attention K/V (with
 ``cache_extra`` free slots) and the cross K/V ``xk``/``xv`` at length
 F, all bf16; ``decode_step`` writes the token's self-attention K/V in
-place and reads the cross caches back in f32.
+place and reads the cross caches back in the compute dtype.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.selectors.functional import LM_SUBSTRATE, not_ported
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
 
@@ -50,30 +50,38 @@ def init_params(gen: torch.Generator, cfg) -> dict:
     return params
 
 
-def encode(params, frames, cfg, *, q_chunk: int = 128):
-    """frames (B, F, d) -> the encoder's output (B, F, d)."""
-    x = frames
-    b, f, _ = x.shape
-    positions = torch.arange(f, device=x.device)[None, :]
-    for lp in TF.unstack_layers(params["encoder"],
-                                cfg.encdec.encoder_layers):
+def encode(params, frames, cfg, *, q_chunk: int = 128, remat: bool = False):
+    """frames (B, F, d) -> the encoder's output (B, F, d).  ``remat``:
+    each layer recomputed in the backward pass
+    (``transformer.remat_call``)."""
+    b, f, _ = frames.shape
+    positions = torch.arange(f, device=frames.device)[None, :]
+
+    def layer(lp, x):
         h = L.apply_norm(x, lp["ln1"], cfg.norm)
         q, k, v = L._project_qkv(lp["attn"], h, cfg, positions)
         a = L.full_attention(q, k, v, causal=False, q_chunk=q_chunk)
-        y = x + a.reshape(b, f, -1) @ lp["attn"]["wo"]
+        y = x + a.reshape(b, f, -1) @ lp["attn"]["wo"].to(x.dtype)
         h = L.apply_norm(y, lp["ln2"], cfg.norm)
-        x = y + L.mlp_block(lp["mlp"], h, cfg.mlp)
+        return y + L.mlp_block(lp["mlp"], h, cfg.mlp)
+
+    x = frames
+    for lp in TF.unstack_layers(params["encoder"],
+                                cfg.encdec.encoder_layers):
+        x = TF.remat_call(layer, remat, lp, x)
     return L.apply_norm(x, params["enc_norm"], cfg.norm)
 
 
 def decode_train(params, tokens, enc_out, cfg, *, q_chunk: int = 128,
-                 collect_kv: bool = False):
+                 collect_kv: bool = False, remat: bool = False):
     """The teacher-forced decoder over tokens (B, T) against the
     encoder's output.  Returns (hidden after the final norm, None or,
-    with ``collect_kv``, (k, v, xk, xv) each stacked over the layers)."""
+    with ``collect_kv``, (k, v, xk, xv) each stacked over the layers).
+    ``remat``: as :func:`encode`."""
     x = params["embed"][tokens.long()].to(enc_out.dtype)
     kvs = []
-    for lp in TF.unstack_layers(params["decoder"], cfg.num_layers):
+
+    def layer(lp, x, enc_out):
         h = L.apply_norm(x, lp["ln1"], cfg.norm)
         a, (k, v) = L.attention_block(lp["attn"], h, cfg, q_chunk=q_chunk)
         y = x + a
@@ -81,23 +89,24 @@ def decode_train(params, tokens, enc_out, cfg, *, q_chunk: int = 128,
         ek, ev = L.cross_kv(lp["xattn"], enc_out, cfg)
         y = y + L.cross_attention_block(lp["xattn"], h, ek, ev, cfg)
         h = L.apply_norm(y, lp["ln2"], cfg.norm)
-        x = y + L.mlp_block(lp["mlp"], h, cfg.mlp)
+        return y + L.mlp_block(lp["mlp"], h, cfg.mlp), (k, v, ek, ev)
+
+    for lp in TF.unstack_layers(params["decoder"], cfg.num_layers):
+        x, kv = TF.remat_call(layer, remat, lp, x, enc_out)
         if collect_kv:
-            kvs.append((k, v, ek, ev))
+            kvs.append(kv)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     if not collect_kv:
         return x, None
     return x, tuple(torch.stack(t) for t in zip(*kvs))
 
 
-def loss_fn(params, batch, cfg, *, dtype=torch.float32, loss_chunk: int = 512):
+def loss_fn(params, batch, cfg, *, dtype=torch.float32, loss_chunk: int = 512,
+            remat: bool = False):
     """The LM loss of {'frames' (B, F, d), 'tokens', 'targets' (B, S),
-    optional 'loss_mask'}.  A compute dtype other than f32 is not
-    ported."""
-    if dtype != torch.float32:
-        raise not_ported("dtype", dtype, LM_SUBSTRATE)
-    enc = encode(params, batch["frames"].float(), cfg)
-    x, _ = decode_train(params, batch["tokens"], enc, cfg)
+    optional 'loss_mask'}, in ``dtype``; ``remat`` as :func:`encode`."""
+    enc = encode(params, batch["frames"].to(dtype), cfg, remat=remat)
+    x, _ = decode_train(params, batch["tokens"], enc, cfg, remat=remat)
     return TF.lm_loss(params, x, batch, cfg, loss_chunk)
 
 
@@ -120,11 +129,12 @@ def init_cache(cfg, batch: int, cache_len: int, source_len: int,
             "xk": zeros(source_len), "xv": zeros(source_len)}
 
 
-def prefill(params, batch, cfg, *, cache_extra: int = 0):
+def prefill(params, batch, cfg, *, dtype=torch.float32, cache_extra: int = 0):
     """Encode {'frames': (B, F, d)} and run the decoder over {'tokens':
-    (B, T)}: (last-token logits (B, 1, V) f32, the bf16 cache: self K/V
-    with ``cache_extra`` free slots, cross K/V at length F)."""
-    enc = encode(params, batch["frames"].float(), cfg)
+    (B, T)}, in ``dtype``: (last-token logits (B, 1, V) f32, the bf16
+    cache: self K/V with ``cache_extra`` free slots, cross K/V at length
+    F)."""
+    enc = encode(params, batch["frames"].to(dtype), cfg)
     x, (k, v, ek, ev) = decode_train(params, batch["tokens"], enc, cfg,
                                      collect_kv=True)
     logits = TF.head_logits(params, x[:, -1:, :], cfg)
@@ -135,12 +145,12 @@ def prefill(params, batch, cfg, *, cache_extra: int = 0):
     return logits, cache
 
 
-def decode_step(params, cache, batch, cfg):
-    """One decoder token {'token': (B, 1), 'pos': int} against the
-    self-attention cache (written in place) and the cross caches.
-    Returns (logits (B, 1, V) f32, cache)."""
+def decode_step(params, cache, batch, cfg, *, dtype=torch.float32):
+    """One decoder token {'token': (B, 1), 'pos': int} in ``dtype``
+    against the self-attention cache (written in place) and the cross
+    caches.  Returns (logits (B, 1, V) f32, cache)."""
     token, pos = batch["token"], int(batch["pos"])
-    x = params["embed"][token.long()]
+    x = params["embed"][token.long()].to(dtype)
     for i, lp in enumerate(TF.unstack_layers(params["decoder"],
                                              cfg.num_layers)):
         h = L.apply_norm(x, lp["ln1"], cfg.norm)

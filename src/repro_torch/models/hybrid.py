@@ -6,9 +6,10 @@ A port of the reference's ``models/hybrid.py``.  Before each group of
 block ``site % num_shared_blocks`` is applied: the weights are shared
 across sites, while each site keeps its own K/V cache at decode time.
 The mamba layers are stacked on a leading axis and split once a
-forward; each group takes its slice.  Compute is f32; the attention
-cache is bf16 (stacked over the sites), the mamba cache f32 after a
-prefill.  ``decode_step`` writes the token's K/V and each layer's SSD
+forward; each group takes its slice.  Compute is in ``dtype`` (f32
+unless the caller asks for bf16; the SSD scan and its state stay f32,
+as in the reference); the attention cache is bf16 (stacked over the
+sites), the mamba conv inputs in the compute dtype after a prefill.  ``decode_step`` writes the token's K/V and each layer's SSD
 state into the cache in place.
 """
 from __future__ import annotations
@@ -17,7 +18,6 @@ from typing import List
 
 import torch
 
-from repro_torch.core.selectors.functional import LM_SUBSTRATE, not_ported
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import transformer as TF
@@ -88,39 +88,43 @@ def _shared_block(sp, x, cfg, attend):
 # ---------------------------------------------------------------------------
 
 
-def forward(params, tokens, cfg, *, window: int = 0, q_chunk: int = 128,
-            collect_cache: bool = False):
-    """Full-span forward over tokens (B, T).  Returns (hidden after the
-    final norm, None or, with ``collect_cache``, {'kv': [(k, v) of each
-    site], 'mamba': [each layer's mixer cache]})."""
-    x = params["embed"][tokens.long()]
+def forward(params, tokens, cfg, *, dtype=torch.float32, window: int = 0,
+            q_chunk: int = 128, collect_cache: bool = False,
+            remat: bool = False):
+    """Full-span forward in ``dtype`` over tokens (B, T).  Returns
+    (hidden after the final norm, None or, with ``collect_cache``,
+    {'kv': [(k, v) of each site], 'mamba': [each layer's mixer
+    cache]}).  ``remat``: each shared block and mamba layer recomputed
+    in the backward pass (``transformer.remat_call``)."""
+    x = params["embed"][tokens.long()].to(dtype)
     layers = TF.unstack_layers(params["mamba"], cfg.num_layers)
     kv_sites, mamba = [], []
 
     def attend(p, h):
         return L.attention_block(p, h, cfg, window=window, q_chunk=q_chunk)
 
+    def mamba_layer(lp, x):
+        out, cache = M.mixer_apply(lp, L.rms_norm(x, lp["ln"]["scale"]), cfg)
+        return x + out, cache
+
     for sp, group in _sites(params, cfg):
-        x, kv = _shared_block(sp, x, cfg, attend)
+        x, kv = TF.remat_call(lambda sp, x: _shared_block(sp, x, cfg, attend),
+                              remat, sp, x)
         kv_sites.append(kv)
         for i in group:
-            lp = layers[i]
-            out, cache = M.mixer_apply(lp, L.rms_norm(x, lp["ln"]["scale"]),
-                                       cfg)
-            x = x + out
+            x, cache = TF.remat_call(mamba_layer, remat, layers[i], x)
             mamba.append(cache)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     return x, ({"kv": kv_sites, "mamba": mamba} if collect_cache else None)
 
 
 def loss_fn(params, batch, cfg, *, dtype=torch.float32, window: int = 0,
-            loss_chunk: int = 512):
+            loss_chunk: int = 512, remat: bool = False):
     """The LM loss of {'tokens', 'targets' (B, S), optional 'loss_mask'}
-    (the registry passes ``window=cfg.sliding_window``).  A compute
-    dtype other than f32 is not ported."""
-    if dtype != torch.float32:
-        raise not_ported("dtype", dtype, LM_SUBSTRATE)
-    x, _ = forward(params, batch["tokens"], cfg, window=window)
+    (the registry passes ``window=cfg.sliding_window``), the forward in
+    ``dtype``."""
+    x, _ = forward(params, batch["tokens"], cfg, dtype=dtype,
+                   window=window, remat=remat)
     return TF.lm_loss(params, x, batch, cfg, loss_chunk)
 
 
@@ -146,13 +150,14 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
                                         device=device)}
 
 
-def prefill(params, batch, cfg, *, window: int = 0, q_chunk: int = 128,
-            cache_extra: int = 0):
-    """Forward over the prompt {'tokens': (B, T)}: (last-token logits
-    (B, 1, V) f32, the cache: the sites' K/V stacked in bf16 with
-    ``cache_extra`` free slots, the mamba layers' caches stacked)."""
-    x, cache = forward(params, batch["tokens"], cfg, window=window,
-                       q_chunk=q_chunk, collect_cache=True)
+def prefill(params, batch, cfg, *, dtype=torch.float32, window: int = 0,
+            q_chunk: int = 128, cache_extra: int = 0):
+    """Forward in ``dtype`` over the prompt {'tokens': (B, T)}:
+    (last-token logits (B, 1, V) f32, the cache: the sites' K/V stacked
+    in bf16 with ``cache_extra`` free slots, the mamba layers' caches
+    stacked)."""
+    x, cache = forward(params, batch["tokens"], cfg, dtype=dtype,
+                       window=window, q_chunk=q_chunk, collect_cache=True)
     logits = TF.head_logits(params, x[:, -1:, :], cfg)
     out = {name: TF._pad_cache_seq(
         torch.stack([kv[j] for kv in cache["kv"]]).to(torch.bfloat16),
@@ -162,14 +167,15 @@ def prefill(params, batch, cfg, *, window: int = 0, q_chunk: int = 128,
 
 
 def decode_step(params, cache, batch, cfg, *, window: int = 0,
-                ring: bool = False):
-    """One-token decode.  batch: {'token': (B, 1), 'pos': int}.  Writes
+                ring: bool = False, dtype=torch.float32):
+    """One-token decode in ``dtype``.  batch: {'token': (B, 1), 'pos':
+    int}.  Writes
     each site's K/V and each layer's SSD state into ``cache`` in place;
     the conv inputs are stacked anew in the compute dtype, as the
     reference's cache leaves come out.  Returns (logits (B, 1, V) f32,
     cache)."""
     token, pos = batch["token"], int(batch["pos"])
-    x = params["embed"][token.long()]
+    x = params["embed"][token.long()].to(dtype)
     layers = TF.unstack_layers(params["mamba"], cfg.num_layers)
     mc = cache["mamba"]
     convs = []

@@ -60,10 +60,11 @@ def _causal_conv(x, w, b, conv_state=None):
         conv_state = torch.zeros((bsz, width - 1, c), dtype=x.dtype,
                                  device=x.device)
     xp = torch.cat([conv_state.to(x.dtype), x], dim=1)  # (B, T + W − 1, C)
+    w = w.to(x.dtype)
     y = xp[:, :t, :] * w[:, 0]
     for i in range(1, width):
         y = y + xp[:, i:i + t, :] * w[:, i]
-    y = y + b
+    y = y + b.to(x.dtype)
     new_state = xp[:, -(width - 1):, :] if width > 1 else conv_state
     return F.silu(y), new_state
 
@@ -101,10 +102,12 @@ def ssd_chunked(x, a_log_t, bm, cm, dt, ssm, state=None):
     nc = t // q
     if state is None:
         state = torch.zeros((b, h, pd, n), device=x.device)
+    # B and C in the compute dtype, their products and sums in f32 (the
+    # reference's preferred_element_type and its promotions)
     xc = x.reshape(b, nc, q, h, pd).float()
     ac = a_log_t.reshape(b, nc, q, h).float()
-    bc = bm.reshape(b, nc, q, n)
-    cc = cm.reshape(b, nc, q, n)
+    bc = bm.reshape(b, nc, q, n).float()
+    cc = cm.reshape(b, nc, q, n).float()
     dtc = dt.reshape(b, nc, q, h)
 
     la = torch.cumsum(ac, dim=2)                          # (B, nc, Q, H)
@@ -133,11 +136,12 @@ def ssd_chunked(x, a_log_t, bm, cm, dt, ssm, state=None):
 
 def mixer_apply(lp, x, cfg, cache=None):
     """x: (B, T, d); cache: None or {'state': (B, H, P, N), 'conv':
-    (B, W − 1, C)}.  Returns (out (B, T, d), the new cache)."""
+    (B, W − 1, C)}.  Returns (out (B, T, d) in x's dtype, the new
+    cache: the SSD state f32, the conv inputs in x's dtype)."""
     ssm = cfg.ssm
     b, t, _ = x.shape
     d_inner, n_heads, _, _ = dims(cfg)
-    z, xbc, dt = _split_proj(x @ lp["in_proj"], cfg)
+    z, xbc, dt = _split_proj(x @ lp["in_proj"].to(x.dtype), cfg)
     xbc, conv_state = _causal_conv(xbc, lp["conv_w"], lp["conv_b"],
                                    None if cache is None else cache["conv"])
     xs, bm, cm = _split_xbc(xbc, cfg)
@@ -151,8 +155,9 @@ def mixer_apply(lp, x, cfg, cache=None):
     # gated RMSNorm, eps 1e-6
     var = torch.mean(y * y, dim=-1, keepdim=True)
     y = y * torch.rsqrt(var + 1e-6) * lp["gn_scale"]
-    y = y * F.silu(z)
-    return y @ lp["out_proj"], {"state": state, "conv": conv_state}
+    y = y.to(x.dtype) * F.silu(z)
+    return (y @ lp["out_proj"].to(x.dtype),
+            {"state": state, "conv": conv_state})
 
 
 def init_cache_layer(cfg, batch: int, dtype=torch.float32, lead=(), *,

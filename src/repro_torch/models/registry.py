@@ -5,7 +5,13 @@ the reference registers, as its ``models/registry.py``.
   params = api.init(seed, device="cuda")
   loss, metrics = api.loss(params, batch)
   logits, cache = api.prefill(params, {"tokens": tokens}, cache_extra=n)
-  logits, cache = api.decode_step(params, cache, {"token": t, "pos": p})
+  logits, cache = api.decode_step(params, cache, {"token": t, "pos": p},
+                                  long_context=False, dtype=torch.float32)
+
+``input_specs(cfg, shape)`` and ``cache_specs(cfg, shape)`` give the
+inputs and the cache of one assigned input shape as ``meta`` tensors
+(shapes and dtypes, no storage), and ``api.init(device="meta")`` the
+params, for the one-card dry run (``launch/dryrun.py``).
 
 The kinds: dense, moe and vlm (``models/transformer.py``), ssm
 (``models/rwkv.py``), hybrid (``models/hybrid.py``) and audio
@@ -16,17 +22,17 @@ from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Any, Callable
+from typing import Any, Callable, Dict
 
 import torch
 
 from repro_torch.backend import resolve_device
-from repro_torch.configs import ModelConfig, get_config
+from repro_torch.configs import ModelConfig, ShapeConfig, get_config
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import rwkv as RK
 from repro_torch.models import transformer as TF
-from repro_torch.models.transformer import cache_geometry
+from repro_torch.models.transformer import cache_geometry, effective_window
 
 
 @dataclasses.dataclass
@@ -39,23 +45,47 @@ class ModelApi:
     init_cache: Callable[..., Any]
 
 
+class _ShapeOnly(torch.Generator):
+    """A generator whose draws land on ``meta``: init's shapes and
+    dtypes with no storage and no draw."""
+    device = torch.device("meta")
+
+
 def _init(init_params, cfg):
     def init(seed: int = 0, *, device="cuda"):
         """Params drawn from a generator on ``device`` seeded by
-        ``seed``; weights never leave the device."""
-        gen = torch.Generator(device=resolve_device(device))
-        return init_params(gen.manual_seed(seed), cfg)
+        ``seed``; weights never leave the device.  On ``meta`` only
+        their shapes and dtypes."""
+        dev = resolve_device(device)
+        if dev.type == "meta":
+            return init_params(_ShapeOnly(), cfg)
+        return init_params(torch.Generator(device=dev).manual_seed(seed),
+                           cfg)
     return init
 
 
 def _windowed(decode_step, cfg):
-    """``decode_step`` with the window and ring of the default (not
-    long-context) geometry, as ``init_cache`` and ``prefill`` lay the
-    cache out."""
-    def step(params, cache, batch):
-        w = cfg.sliding_window
+    """``decode_step`` with the window of the geometry ``long_context``
+    selects (the reference's ``effective_window(cfg, 1 << 62,
+    long_context)``), a ring buffer where the cache is no longer than
+    the window, as ``init_cache`` lays it out."""
+    def step(params, cache, batch, *, long_context=False,
+             dtype=torch.float32):
+        w = effective_window(cfg, 1 << 62, long_context)
         ring = bool(w) and cache["k"].shape[2] <= w
-        return decode_step(params, cache, batch, cfg, window=w, ring=ring)
+        return decode_step(params, cache, batch, cfg, window=w, ring=ring,
+                           dtype=dtype)
+    return step
+
+
+def _unwindowed(decode_step, cfg):
+    """``decode_step`` of a family with no attention window (the
+    recurrent and the encoder-decoder caches): ``long_context`` does
+    not change it, as in the reference."""
+    def step(params, cache, batch, *, long_context=False,
+             dtype=torch.float32):
+        del long_context
+        return decode_step(params, cache, batch, cfg, dtype=dtype)
     return step
 
 
@@ -83,7 +113,7 @@ def _rwkv_api(cfg) -> ModelApi:
     return ModelApi(cfg=cfg, init=_init(RK.init_params, cfg),
                     loss=partial(RK.loss_fn, cfg=cfg),
                     prefill=partial(RK.prefill, cfg=cfg),
-                    decode_step=partial(RK.decode_step, cfg=cfg),
+                    decode_step=_unwindowed(RK.decode_step, cfg),
                     init_cache=init_cache)
 
 
@@ -115,7 +145,7 @@ def _encdec_api(cfg) -> ModelApi:
     return ModelApi(cfg=cfg, init=_init(ED.init_params, cfg),
                     loss=partial(ED.loss_fn, cfg=cfg),
                     prefill=partial(ED.prefill, cfg=cfg),
-                    decode_step=partial(ED.decode_step, cfg=cfg),
+                    decode_step=_unwindowed(ED.decode_step, cfg),
                     init_cache=init_cache)
 
 
@@ -132,3 +162,50 @@ def get_model(cfg_or_name) -> ModelApi:
                          "classifier models use "
                          "repro_torch.models.classifier")
     return _APIS[cfg.kind](cfg)
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors: shapes and dtypes, no storage)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """The model inputs of one assigned input shape, as ``meta``
+    tensors: the reference's ``input_specs`` (torch has no
+    ``ShapeDtypeStruct``)."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(dims, dt=torch.int32):
+        return torch.empty(dims, dtype=dt, device="meta")
+
+    if shape.mode == "decode":     # one new token against a seq_len cache
+        return {"token": spec((b, 1)), "pos": spec(())}
+    if cfg.kind == "vlm":
+        p = cfg.vlm.num_patches
+        prefix, text = {"patches": spec((b, p, cfg.vlm.patch_embed_dim),
+                                        dtype)}, s - p
+    elif cfg.kind == "audio":
+        f = min(cfg.encdec.max_source_frames, s)
+        prefix, text = {"frames": spec((b, f, cfg.d_model), dtype)}, s
+    else:
+        prefix, text = {}, s
+    specs = dict(prefix, tokens=spec((b, text)))
+    if shape.mode == "train":
+        specs["targets"] = spec((b, text))
+        specs["loss_mask"] = spec((b, text), torch.float32)
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> Any:
+    """The cache of a decode shape as ``meta`` tensors, in the layout
+    ``init_cache`` gives it (long_500k at the long-context geometry)."""
+    return get_model(cfg).init_cache(
+        shape.global_batch, shape.seq_len,
+        long_context=shape.name == "long_500k", device="meta")
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    if shape.name == "long_500k" and cfg.long_context_mode == "skip":
+        return False
+    return cfg.kind != "classifier"

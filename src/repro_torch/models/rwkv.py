@@ -9,15 +9,17 @@ the (B, H, N, N) state in f32.  Decode feeds one token through the same
 forward with the recurrent cache: the per-layer state and the two
 token-shift rows, O(1) in the sequence length.  Layers are stacked on a
 leading axis and split once a forward (``transformer.unstack_layers``).
-Compute is f32; the reference's ``jax.checkpoint`` of each layer does
-not change the numbers, and the port keeps the activations.
+Compute is in ``dtype`` (f32 unless the caller asks for bf16): the
+weights are cast to it where they are used, while the decay, the WKV
+state and its recurrence, and the group norm run in f32, as the
+reference casts them.  The reference's ``jax.checkpoint`` of each layer
+does not change the numbers, and the port keeps the activations.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.selectors.functional import LM_SUBSTRATE, not_ported
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
 
@@ -83,19 +85,22 @@ def _shift(x, x_prev):
 
 
 def _tmix_projections(p, x, x_prev, n_heads: int, head_dim: int):
-    """r, k, v, w (B, T, H, N) and the gate g (B, T, d) of a segment."""
+    """r, k, v (B, T, H, N) and the gate g (B, T, d) in x's dtype, the
+    decay w (B, T, H, N) in f32, of a segment."""
     b, t, _ = x.shape
+    dt = x.dtype
     xx = _shift(x, x_prev) - x
-    xxx = x + xx * p["mu_x"]
-    m = torch.tanh(xxx @ p["w1"]).reshape(b, t, _MIX, -1)
-    m = torch.einsum("btmr,mrd->btmd", m, p["w2"])
-    xs = x[:, :, None, :] + xx[:, :, None, :] * (p["mu"] + m)
+    xxx = x + xx * p["mu_x"].to(dt)
+    m = torch.tanh(xxx @ p["w1"].to(dt)).reshape(b, t, _MIX, -1)
+    m = torch.einsum("btmr,mrd->btmd", m, p["w2"].to(dt))
+    xs = x[:, :, None, :] + xx[:, :, None, :] * (p["mu"].to(dt) + m)
     xr, xk, xv, xw, xg = xs.unbind(2)
-    r = xr @ p["receptance"]
-    k = xk @ p["key"]
-    v = xv @ p["value_ff"]
-    g = F.silu(xg @ p["gate"])
-    dec = p["decay_base"] + torch.tanh(xw @ p["decay_a"]) @ p["decay_b"]
+    r = xr @ p["receptance"].to(dt)
+    k = xk @ p["key"].to(dt)
+    v = xv @ p["value_ff"].to(dt)
+    g = F.silu(xg @ p["gate"].to(dt))
+    dec = p["decay_base"].float() + (
+        torch.tanh(xw @ p["decay_a"].to(dt)).float() @ p["decay_b"].float())
     w = torch.exp(-torch.exp(dec))                  # (B, T, d) in (0, 1)
     shp = (b, t, n_heads, head_dim)
     return r.reshape(shp), k.reshape(shp), v.reshape(shp), w.reshape(shp), g
@@ -114,7 +119,8 @@ def tmix_apply(p, x, state, x_prev, n_heads: int, head_dim: int):
     segment at once; the loop over its tokens carries the state."""
     b, t, d = x.shape
     r, k, v, w, g = _tmix_projections(p, x, x_prev, n_heads, head_dim)
-    u = p["bonus"].reshape(n_heads, head_dim)
+    u = p["bonus"].float().reshape(n_heads, head_dim)
+    r, k, v = r.float(), k.float(), v.float()
     kv = k[..., :, None] * v[..., None, :]              # (B, T, H, N, N)
     ukv = u[..., :, None] * kv
     ys = []
@@ -126,17 +132,18 @@ def tmix_apply(p, x, state, x_prev, n_heads: int, head_dim: int):
     mu = yh.mean(-1, keepdim=True)
     var = torch.var(yh, dim=-1, keepdim=True, unbiased=False)
     y = ((yh - mu) * torch.rsqrt(var + 64e-5)).reshape(b, t, d)
-    y = (y * p["gn_scale"] + p["gn_bias"]) * g
-    return y @ p["wo"], state, x[:, -1, :]
+    y = (y * p["gn_scale"] + p["gn_bias"]).to(x.dtype) * g
+    return y @ p["wo"].to(x.dtype), state, x[:, -1, :]
 
 
 def cmix_apply(p, x, x_prev):
+    dt = x.dtype
     xx = _shift(x, x_prev) - x
-    xk = x + xx * p["mu_k"]
-    xr = x + xx * p["mu_r"]
-    k = torch.square(torch.relu(xk @ p["key"]))
-    kv = k @ p["value_out"]
-    return torch.sigmoid(xr @ p["receptance"]) * kv, x[:, -1, :]
+    xk = x + xx * p["mu_k"].to(dt)
+    xr = x + xx * p["mu_r"].to(dt)
+    k = torch.square(torch.relu(xk @ p["key"].to(dt)))
+    kv = k @ p["value_out"].to(dt)
+    return torch.sigmoid(xr @ p["receptance"].to(dt)) * kv, x[:, -1, :]
 
 
 def layer_apply(lp, x, state, xp_att, xp_ffn, cfg):
@@ -186,21 +193,26 @@ def init_cache(cfg, batch: int, cache_len: int = 0, dtype=torch.float32,
     }
 
 
-def forward(params, tokens, cfg, cache=None):
-    """Segment forward over tokens (B, T), a whole sequence or one token,
-    from ``cache`` (a zero cache if None).  Returns (hidden after the
-    final norm, the new cache); the token-shift rows are computed in f32
-    and stored back in the cache's dtype."""
+def forward(params, tokens, cfg, cache=None, *, dtype=torch.float32,
+            remat: bool = False):
+    """Segment forward in ``dtype`` over tokens (B, T), a whole sequence
+    or one token, from ``cache`` (a zero cache in ``dtype`` if None).
+    Returns (hidden after the final norm, the new cache); the
+    token-shift rows are computed in ``dtype`` and stored back in the
+    cache's dtype.  ``remat``: each layer recomputed in the backward
+    pass (``transformer.remat_call``)."""
     if cache is None:
-        cache = init_cache(cfg, tokens.shape[0], device=tokens.device)
-    x = params["embed"][tokens.long()]
+        cache = init_cache(cfg, tokens.shape[0], dtype=dtype,
+                           device=tokens.device)
+    x = params["embed"][tokens.long()].to(dtype)
     x = L.layer_norm(x, params["ln_in"]["scale"], params["ln_in"]["bias"])
     out = {"state": [], "xp_att": [], "xp_ffn": []}
     layers = TF.unstack_layers(params["layers"], cfg.num_layers)
     for i, lp in enumerate(layers):
-        x, st, xa, xf = layer_apply(lp, x, cache["state"][i],
-                                    cache["xp_att"][i].float(),
-                                    cache["xp_ffn"][i].float(), cfg)
+        x, st, xa, xf = TF.remat_call(
+            lambda *a: layer_apply(*a, cfg), remat, lp, x,
+            cache["state"][i], cache["xp_att"][i].to(dtype),
+            cache["xp_ffn"][i].to(dtype))
         for name, t in (("state", st), ("xp_att", xa), ("xp_ffn", xf)):
             out[name].append(t)
     x = L.layer_norm(x, params["final_norm"]["scale"],
@@ -209,27 +221,26 @@ def forward(params, tokens, cfg, cache=None):
                for name, ts in out.items()}
 
 
-def loss_fn(params, batch, cfg, *, dtype=torch.float32, loss_chunk: int = 512):
-    """The LM loss of {'tokens', 'targets' (B, S), optional 'loss_mask'}:
-    (loss, {ce_loss, accuracy, tokens, loss}).  A compute dtype other
-    than f32 is not ported."""
-    if dtype != torch.float32:
-        raise not_ported("dtype", dtype, LM_SUBSTRATE)
-    x, _ = forward(params, batch["tokens"], cfg)
+def loss_fn(params, batch, cfg, *, dtype=torch.float32, loss_chunk: int = 512,
+            remat: bool = False):
+    """The LM loss of {'tokens', 'targets' (B, S), optional 'loss_mask'},
+    the forward in ``dtype``: (loss, {ce_loss, accuracy, tokens,
+    loss})."""
+    x, _ = forward(params, batch["tokens"], cfg, dtype=dtype, remat=remat)
     return TF.lm_loss(params, x, batch, cfg, loss_chunk)
 
 
-def prefill(params, batch, cfg, *, cache_extra: int = 0):
-    """Forward over the prompt {'tokens': (B, T)}: (last-token logits
-    (B, 1, V) f32, the recurrent cache).  ``cache_extra`` is unused: the
-    cache does not grow."""
+def prefill(params, batch, cfg, *, dtype=torch.float32, cache_extra: int = 0):
+    """Forward in ``dtype`` over the prompt {'tokens': (B, T)}:
+    (last-token logits (B, 1, V) f32, the recurrent cache).
+    ``cache_extra`` is unused: the cache does not grow."""
     del cache_extra
-    x, cache = forward(params, batch["tokens"], cfg)
+    x, cache = forward(params, batch["tokens"], cfg, dtype=dtype)
     return TF.head_logits(params, x[:, -1:, :], cfg), cache
 
 
-def decode_step(params, cache, batch, cfg):
-    """One token {'token': (B, 1)} against the cache ('pos' unused):
-    (logits (B, 1, V) f32, the new cache)."""
-    x, cache = forward(params, batch["token"], cfg, cache)
+def decode_step(params, cache, batch, cfg, *, dtype=torch.float32):
+    """One token {'token': (B, 1)} in ``dtype`` against the cache ('pos'
+    unused): (logits (B, 1, V) f32, the new cache)."""
+    x, cache = forward(params, batch["token"], cfg, cache, dtype=dtype)
     return TF.head_logits(params, x, cfg), cache

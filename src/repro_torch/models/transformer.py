@@ -15,8 +15,12 @@ and its per-layer aux terms are stacked over the layers as the scan
 stacks them.  A VLM config projects a batch's ``patches`` (B, P,
 patch_embed_dim) to d_model and prepends them to the tokens, so the
 positions run over P + S; the loss reads the text positions only.
-Compute is f32; the cache is bf16, as the reference's ``prefill`` and
-serve path keep it.  Unlike the reference, ``decode_step`` writes the
+Compute is in ``dtype`` (f32 unless the caller asks for bf16, as the
+reference's functions take it): the embeddings are cast to it and every
+weight is cast to the activations' dtype where it is used, while norms,
+RoPE, attention scores and softmax, the router and the logits run in
+f32, as the reference casts them.  The cache is bf16, as the
+reference's ``prefill`` and serve path keep it.  Unlike the reference, ``decode_step`` writes the
 new token's K/V into the cache tensors in place (no copy of the cache
 per token) and returns the same dict.  The reference's
 ``jax.checkpoint`` of each layer does not change the numbers; the port
@@ -26,8 +30,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.selectors.functional import LM_SUBSTRATE, not_ported
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models.losses import chunked_lm_loss
@@ -109,6 +113,17 @@ def unstack_layers(layers: dict, n: int) -> list:
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
+def remat_call(fn, remat: bool, *args):
+    """``fn(*args)``; with ``remat`` under autograd its activations are
+    recomputed in the backward pass rather than kept (the reference's
+    ``jax.checkpoint`` of each layer): the same numbers, one layer's
+    activations live at a time."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def head_weights(params, cfg):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]["w"]
     b = params.get("lm_head", {}).get("b") if cfg.lm_head_bias else None
@@ -140,11 +155,11 @@ def lm_loss(params, x, batch, cfg, loss_chunk: int = 512):
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, tokens, cfg):
-    x = params["embed"][tokens.long()]
+def _embed(params, tokens, cfg, dtype=torch.float32):
+    x = params["embed"][tokens.long()].to(dtype)
     if cfg.scale_embeddings:
-        # √d_model rounded to f32 first, as jnp.asarray(d ** 0.5, f32)
-        x = x * float(np.float32(cfg.d_model ** 0.5))
+        # √d_model rounded to dtype first, as jnp.asarray(d ** 0.5, dtype)
+        x = x * float(torch.tensor(np.float32(cfg.d_model ** 0.5)).to(dtype))
     return x
 
 
@@ -165,19 +180,25 @@ def _layer_apply(lp, x, cfg, q_chunk):
     return x + m, kv, aux
 
 
-def forward(params, tokens, cfg, *, extra_embeds=None, q_chunk: int = 128):
-    """Full-span f32 forward over tokens (B, T), after the projected
-    ``extra_embeds`` (B, P, patch_embed_dim) if given (VLM).  Returns
-    (hidden (B, P + T, d) after the final norm, [(k, v) of each layer],
-    the MoE aux terms stacked over the layers or None)."""
-    x = _embed(params, tokens, cfg)
+def forward(params, tokens, cfg, *, extra_embeds=None, dtype=torch.float32,
+            q_chunk: int = 128, remat: bool = False):
+    """Full-span forward in ``dtype`` over tokens (B, T), after the
+    projected ``extra_embeds`` (B, P, patch_embed_dim) if given (VLM).
+    Returns (hidden (B, P + T, d) after the final norm, [(k, v) of each
+    layer], the MoE aux terms stacked over the layers or None).
+    ``remat``: each layer recomputed in the backward pass
+    (:func:`remat_call`)."""
+    x = _embed(params, tokens, cfg, dtype)
     if extra_embeds is not None:
         proj = params["projector"]
-        pref = extra_embeds.to(x.dtype) @ proj["w"] + proj["b"]
+        pref = (extra_embeds.to(dtype) @ proj["w"].to(dtype)
+                + proj["b"].to(dtype))
         x = torch.cat([pref, x], dim=1)
     kvs, auxs = [], []
     for lp in unstack_layers(params["layers"], cfg.num_layers):
-        x, kv, aux = _layer_apply(lp, x, cfg, q_chunk)
+        x, kv, aux = remat_call(lambda lp, x: _layer_apply(lp, x, cfg,
+                                                           q_chunk),
+                                remat, lp, x)
         kvs.append(kv)
         auxs.append(aux)
     aux = (None if cfg.moe is None else
@@ -197,19 +218,17 @@ def _patches(batch, cfg):
 
 
 def loss_fn(params, batch, cfg, *, dtype=torch.float32, q_chunk: int = 128,
-            loss_chunk: int = 512):
+            loss_chunk: int = 512, remat: bool = False):
     """The LM loss of ``batch`` {'tokens', 'targets' (B, S), optional
-    'loss_mask', and 'patches' for a VLM}: the f32 forward, then the
-    chunked cross-entropy of the head over the text positions, plus a
-    MoE config's aux losses.  Returns (loss, {ce_loss, accuracy, tokens,
-    loss} and, for MoE, moe_frac_dropped averaged over the layers).  A
-    compute dtype other than f32 is not ported."""
-    if dtype != torch.float32:
-        raise not_ported("dtype", dtype, LM_SUBSTRATE)
+    'loss_mask', and 'patches' for a VLM}: the forward in ``dtype``,
+    then the chunked cross-entropy of the head (f32 logits) over the
+    text positions, plus a MoE config's aux losses.  Returns (loss,
+    {ce_loss, accuracy, tokens, loss} and, for MoE, moe_frac_dropped
+    averaged over the layers).  ``remat``: see :func:`forward`."""
     tokens = batch["tokens"]
     extra = _patches(batch, cfg)
     x, _, aux = forward(params, tokens, cfg, extra_embeds=extra,
-                        q_chunk=q_chunk)
+                        dtype=dtype, q_chunk=q_chunk, remat=remat)
     if extra is not None:
         x = x[:, -tokens.shape[1]:, :]     # loss over text positions only
     loss, metrics = lm_loss(params, x, batch, cfg, loss_chunk)
@@ -243,12 +262,12 @@ def _pad_cache_seq(k, extra: int):
     return torch.cat([k, pad], dim=2)
 
 
-def prefill(params, batch, cfg, *, cache_extra: int = 0):
-    """Forward over a prompt {'tokens': (B, T)} (a VLM's after its
-    'patches' (B, P, ·): the cache then holds P + T positions); returns
-    (last-token logits (B, 1, V) f32, bf16 cache with ``cache_extra``
-    free slots)."""
-    x, kvs, _ = forward(params, batch["tokens"], cfg,
+def prefill(params, batch, cfg, *, dtype=torch.float32, cache_extra: int = 0):
+    """Forward in ``dtype`` over a prompt {'tokens': (B, T)} (a VLM's
+    after its 'patches' (B, P, ·): the cache then holds P + T
+    positions); returns (last-token logits (B, 1, V) f32, bf16 cache
+    with ``cache_extra`` free slots)."""
+    x, kvs, _ = forward(params, batch["tokens"], cfg, dtype=dtype,
                         extra_embeds=_patches(batch, cfg))
     logits = head_logits(params, x[:, -1:, :], cfg)
     cache = {name: _pad_cache_seq(
@@ -258,12 +277,12 @@ def prefill(params, batch, cfg, *, cache_extra: int = 0):
 
 
 def decode_step(params, cache, batch, cfg, *, window: int = 0,
-                ring: bool = False):
-    """One-token decode.  batch: {'token': (B, 1), 'pos': int}.  Writes
-    the token's K/V into ``cache`` in place; returns (logits (B, 1, V)
-    f32, cache)."""
+                ring: bool = False, dtype=torch.float32):
+    """One-token decode in ``dtype``.  batch: {'token': (B, 1), 'pos':
+    int}.  Writes the token's K/V into ``cache`` in place; returns
+    (logits (B, 1, V) f32, cache)."""
     token, pos = batch["token"], int(batch["pos"])
-    x = _embed(params, token, cfg)
+    x = _embed(params, token, cfg, dtype)
     layers = unstack_layers(params["layers"], cfg.num_layers)
     for i, lp in enumerate(layers):
         h = L.apply_norm(x, lp["ln1"], cfg.norm)

@@ -51,10 +51,11 @@ from repro_torch.scenarios.partition_device import (
 from repro_torch.scenarios.registry import (SCENARIOS, Scenario,
                                             get_scenario, make_dataset,
                                             materialize, scenario_key)
-from repro_torch.scenarios.sweep import (SweepSpec, build_async_pair,
-                                         build_pair, run_async_sweep,
+from repro_torch.scenarios.sweep import (SweepSpec, bench_sweep,
+                                         build_async_pair, build_pair,
+                                         run_async_sweep,
                                          run_host_reference, run_sweep,
-                                         seed_keychain)
+                                         seed_keychain, serial_seconds)
 
 __all__ = [
     "availability_mask", "masked_select", "replace_unavailable",
@@ -62,6 +63,7 @@ __all__ = [
     "partition_device", "partition_label_distributions",
     "SCENARIOS", "Scenario", "get_scenario", "make_dataset",
     "materialize", "scenario_key",
-    "SweepSpec", "build_async_pair", "build_pair", "run_async_sweep",
-    "run_host_reference", "run_sweep", "seed_keychain",
+    "SweepSpec", "bench_sweep", "build_async_pair", "build_pair",
+    "run_async_sweep", "run_host_reference", "run_sweep", "seed_keychain",
+    "serial_seconds",
 ]

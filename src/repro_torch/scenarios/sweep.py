@@ -26,6 +26,8 @@ Drivers:
                              FederatedServer (host loop or scanned) on
                              the same data
   run_async_sweep(spec)      the grid through the buffered-async server
+  bench_sweep(spec)          the sweep against one seed at a time (and
+                             the host loop): seconds a cell
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ from repro_torch.optim import tree_map
 from repro_torch.scenarios.partition_device import Partition
 from repro_torch.scenarios.registry import (Scenario, get_scenario,
                                             make_dataset, materialize)
-from repro_torch.telemetry import MetricsSpec
+from repro_torch.telemetry import MetricsSpec, env_stamp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -447,6 +449,74 @@ def run_async_sweep(spec: SweepSpec, capacity: int = 0,
                       "beta": beta, "server_mix": server_mix,
                       "max_lag": max_lag},
             "grid": grid}
+
+
+def serial_seconds(spec: SweepSpec, scenario_name: str, selector: str,
+                   device="cuda") -> Tuple[float, float]:
+    """The cell's seeds one after another, each a single-seed sweep
+    server through the scanned driver run twice: (the seconds of the
+    first runs' segments, their capture included; the seconds of the
+    second runs', replays only), summed over the seeds."""
+    first = second = 0.0
+    for seed in spec.seeds:
+        srv = build_pair(dataclasses.replace(spec, seeds=(seed,)),
+                         scenario_name, selector, device).servers[0]
+        srv.test = None
+        srv.run()
+        first += sum(srv.history["segment_wall_s"])
+        srv.run()
+        second += srv.history["segment_wall_s"][-1]
+        del srv
+    return first, second
+
+
+def bench_sweep(spec: SweepSpec, include_host: bool = False,
+                device="cuda") -> Dict[str, Any]:
+    """The sweep's seconds a grid cell against one seed at a time, with
+    the reference's keys.
+
+    ``vmapped_s`` is the cell's :meth:`PairRun.run`, which replays one
+    graph a round over all its seeds; ``serial_engine_s`` the seeds one
+    at a time through the scanned driver (:func:`serial_seconds`).  Each
+    is timed on its second run, so that the CUDA graphs' capture is
+    excluded from both, as the reference excludes its compiles; on the
+    CPU both run eagerly.  With ``include_host`` the ``FederatedServer``
+    host loop (:func:`run_host_reference`) is timed as it is, set-up
+    included, for the scenarios that are not time-varying."""
+    out: Dict[str, Any] = {
+        "what": "one graph a round over the seeds vs one seed at a time",
+        "seeds": [int(s) for s in spec.seeds],
+        "rounds": spec.rounds, "num_clients": spec.num_clients,
+        "env": env_stamp(),
+        "grid": {},
+    }
+    for scenario_name in spec.scenarios:
+        for selector in spec.selectors:
+            pair = build_pair(spec, scenario_name, selector, device)
+            pair.run()                                   # capture
+            pair.run()
+            vmapped_s = pair.wall_s
+            serial_s = serial_seconds(spec, scenario_name, selector,
+                                      device)[1]
+            cell = {"vmapped_s": vmapped_s, "serial_engine_s": serial_s,
+                    "speedup_vs_serial": serial_s / vmapped_s}
+            # the server loop has no availability schedule, so the
+            # host-loop baseline only exists for always-on scenarios
+            if include_host and not pair.scenario.time_varying:
+                t0 = time.perf_counter()
+                for s in spec.seeds:
+                    run_host_reference(spec, scenario_name, selector,
+                                       int(s), device=device)
+                cell["host_loop_s"] = time.perf_counter() - t0
+                cell["speedup_vs_host"] = cell["host_loop_s"] / vmapped_s
+            out["grid"][f"{scenario_name}/{selector}"] = cell
+            print(f"  {scenario_name:18s} {selector:8s} "
+                  f"vmapped={vmapped_s:6.2f}s  serial={serial_s:6.2f}s  "
+                  f"({cell['speedup_vs_serial']:.2f}x)"
+                  + (f"  host={cell['host_loop_s']:6.2f}s"
+                     if "host_loop_s" in cell else ""), flush=True)
+            del pair
+    return out
 
 
 def _spec_dict(spec: SweepSpec) -> Dict[str, Any]:

@@ -243,6 +243,35 @@ def test_scenario_entry_points_raise_without_cuda(no_cuda):
             call()
 
 
+def test_substrate_entry_points_raise_without_cuda(no_cuda):
+    """The sweep CLI and its bench, the local multi-host mode and the
+    train state default to the card; the multi-host mode without
+    ``--local`` is not ported."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import multihost, sweep
+    from repro_torch.launch.steps import make_init_state
+    from repro_torch.models import get_model
+    from repro_torch.optim import adam
+    from repro_torch.scenarios import SweepSpec, bench_sweep, serial_seconds
+    spec = SweepSpec(scenarios=("mixed_80_20",), selectors=("hics",),
+                     seeds=(0,), num_clients=4, num_select=2, rounds=1,
+                     samples_train=40, samples_test=10)
+    api = get_model(get_config("qwen2.5-3b").reduced())
+    calls = [
+        lambda: sweep.main(["--quick", "--bench", ""]),
+        lambda: multihost.main(["--local", "--task", "train", "--arch",
+                                "qwen2.5-3b", "--steps", "1"]),
+        lambda: make_init_state(api, adam(1e-3))(),
+        lambda: bench_sweep(spec),
+        lambda: serial_seconds(spec, "mixed_80_20", "hics"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(NotImplementedError, match="one card"):
+        multihost.main(["--task", "train"])
+
+
 def test_kernel_wrappers_refuse_cpu_tensors_at_launch():
     """The raw launch functions never run on the CPU: a CPU tensor is
     refused before any library is built or loaded."""

@@ -29,6 +29,7 @@ from repro.kernels.pairwise import (hics_selection_step_pallas,
                                     pairwise_distance_pallas)
 from repro_torch.kernels import gram_update as gu
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels.decode_attention import (decode_splits,
                                                   resident_blocks)
 from repro_torch.kernels.fused_stats import fused_stats, stats_splits
@@ -498,6 +499,73 @@ def _split_case(g_dh, dtype):
         assert got.dtype == torch.float32 and got.shape == (b, kv * g, dh)
         _close(got, want, 5e-5, rtol=5e-5)
         _close(got, unsplit, 5e-5, rtol=5e-5)
+
+
+def test_decode_plan_takes_every_group_and_width():
+    """The chunk plan: the registered configs keep one chunk, their
+    compile-time width and 3 stages; every G in 1..40 and every dh that
+    is a multiple of 8 up to 512 gets chunks of gc heads that cover G
+    with fewer than GP·E <= 32 register values a lane and shared memory
+    within the limit, f32 and bf16; G 16 at dh 128 is two chunks of 8,
+    G 24 at dh 64 two of 12; a dh off the 16-byte rows is refused with
+    the reason."""
+    for g, dh in [(8, 128), (7, 128), (6, 128), (4, 128), (1, 256),
+                  (1, 112), (2, 64), (16, 64)]:
+        for elt in (2, 4):
+            plan = da.decode_plan(g, dh, elt)
+            assert (plan.chunks, plan.gc, plan.stages, plan.fixed) == (
+                1, g, 3, True), (g, dh, plan)
+            assert plan.gp == da.group_pad(g)
+    for g in range(1, 41):
+        for dh in range(8, 513, 8):
+            for elt in (2, 4):
+                plan = da.decode_plan(g, dh, elt)
+                assert plan.gc * plan.chunks >= g > plan.gc * (
+                    plan.chunks - 1)
+                assert plan.gp == da.group_pad(plan.gc) <= 16
+                assert plan.gp * plan.e <= 32 and 32 * plan.e >= dh
+                assert dh % plan.e == 0 or plan.e == 16
+                assert da.smem_bytes(g, dh, elt) <= da.SMEM_LIMIT
+                assert plan.fixed == (dh in da.HEAD_DIMS)
+    assert (da.decode_plan(16, 128, 4).chunks,
+            da.decode_plan(16, 128, 4).gc) == (2, 8)
+    assert (da.decode_plan(24, 64, 2).chunks,
+            da.decode_plan(24, 64, 2).gc) == (2, 12)
+    assert da.decode_plan(1, 512, 4).stages == 1
+    assert da.decode_plan(1, 320, 4).stages == 2
+    assert da.decode_plan(1, 512, 2).stages == 3
+    for dh in (100, 4, 520, 0):
+        with pytest.raises(ValueError, match="16-byte chunks"):
+            da.decode_plan(2, dh, 4)
+
+
+def test_decode_chunked_split_plain_vs_pallas():
+    """The plain version of the chunked split at the plan's gc, at dh
+    80, 96, 192 and 512 (G 4), G 16 at dh 128 and G 24 at dh 64, f32
+    and bf16 K/V with an f32 q, P in {1, 3}: within 5e-5 absolute and
+    relative of the Pallas kernel in interpret mode (only the order of
+    the sums differs), a length-0 row exactly 0."""
+    each(_chunked_case, [(4, 80), (4, 96), (4, 192), (4, 512), (16, 128),
+                         (24, 64)], [jnp.float32, jnp.bfloat16])
+
+
+def _chunked_case(g_dh, dtype):
+    g, dh = g_dh
+    b, kv, s = 3, 2, 96
+    rng = np.random.default_rng(g + dh)
+    q = rng.normal(size=(b, kv * g, dh)).astype(np.float32)
+    jk, tk = _to_jax(rng.normal(size=(b, s, kv, dh)), dtype)
+    jv, tv = _to_jax(rng.normal(size=(b, s, kv, dh)), dtype)
+    lens = np.array([s, 41, 0])
+    want = decode_attention_pallas(jnp.asarray(q), jk, jv, lens,
+                                   block_s=32, interpret=True)
+    tq, tl = torch.tensor(q), torch.tensor(lens)
+    plan = da.decode_plan(g, dh, tk.element_size())
+    for splits in (1, 3):
+        got = ref.decode_attention_split_ref(tq, tk, tv, tl, splits,
+                                             gc=plan.gc)
+        assert got.shape == (b, kv * g, dh) and not got[2].any()
+        _close(got, want, 5e-5, rtol=5e-5)
 
 
 def test_decode_split_plain_ragged_and_empty_rows():

@@ -20,6 +20,7 @@ Tolerances:
 * Greedy tokens: identical.
 """
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -259,17 +260,16 @@ def test_cache_geometry_matches_jax():
 def test_non_dense_configs_raise():
     """Every model kind of the reference builds, and the port registers
     the reference's archs; what the port still does not run raises
-    ``NotImplementedError`` naming its ROADMAP.md item (a loss in a
-    compute dtype other than f32, in every family), a name neither
-    package registers ``KeyError``, a classifier ``ValueError``; an
-    audio arch through ``launch.train`` fails as the reference's does
-    (its batches carry no frames)."""
+    ``NotImplementedError`` naming its ROADMAP.md item (nothing since
+    every family takes a compute dtype and ``long_context``, as the
+    reference's), a name neither package registers ``KeyError``, a
+    classifier ``ValueError``; an audio arch through ``launch.train``
+    fails as the reference's does (its batches carry no frames)."""
     from repro.configs import list_archs
     from repro.launch import train as jtrain
     from repro_torch.configs import list_archs as port_archs
     from repro_torch.launch import train as ttrain
     assert port_archs() == list_archs()
-    item = "queue 1: the rest of the LM substrate"
     kinds = {}
     for name in port_archs():
         cfg = get_config(name)
@@ -280,8 +280,10 @@ def test_non_dense_configs_raise():
         kinds[cfg.kind] = get_model(name)
     assert sorted(kinds) == ["audio", "dense", "hybrid", "moe", "ssm", "vlm"]
     for api in kinds.values():
-        with pytest.raises(NotImplementedError, match=item):
-            api.loss({}, {}, dtype=torch.bfloat16)
+        for fn, names in ((api.loss, ("dtype",)), (api.prefill, ("dtype",)),
+                          (api.decode_step, ("dtype", "long_context"))):
+            params = inspect.signature(fn).parameters
+            assert all(n in params for n in names), (api.cfg.name, fn)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch-7b")
     with pytest.raises(ValueError):
