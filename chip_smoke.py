@@ -113,10 +113,18 @@ qwen2.5-3b at published width and depth through a bf16 train step
 (train_4k's length), a bf16 prefill_32k and a bf16 decode_32k step at
 those batches (cut for time), each's peak memory beside the dry run's
 bytes and its ms beside the roofline bound; and ``launch.multihost
---local --task train`` for 2 steps.  ``serve_kernels`` also holds the
-decode kernel at the shapes no registered config has: dh 8, 40, 80,
-96, 192, 264, 320 and 512 (the runtime row width) and G 16 at dh 128,
-G 24 at dh 64, G 3 at dh 512 (the group split into chunks).  Phase
+--local --task train`` for 2 steps.  Then phase ``sharded`` (alone:
+``python3 chip_smoke.py sharded``): qwen2.5-3b at published width and
+depth on a real one-card mesh (NCCL, world 1, mesh (1, 1)) through a
+bf16 train step at train_4k's length, a prefill and a decode step,
+unsharded and on DTensors under 2d and fsdp, held bit for bit to the
+unsharded steps with no collective byte, and timed; and, in worker
+processes on ``meta``, the production dry run of four combos on the
+16×16 mesh (``launch.dryrun.run_mesh_combo``).  ``serve_kernels`` also
+holds the decode kernel at the shapes no registered config has: dh 8,
+40, 80, 96, 192, 264, 320 and 512 (the runtime row width), dh 1, 4,
+36, 37, 100 and 260 (off the 16-byte rows) and G 16 at dh 128, G 24 at
+dh 64, G 3 at dh 512 (the group split into chunks).  Phase
 ``lm_train``
 also writes ``--telemetry`` and reads it back.
 Prints one JSON line per phase, one ``{"kernels": [...]}`` line and,
@@ -147,6 +155,7 @@ import gc
 import json
 import multiprocessing
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -157,6 +166,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from repro_torch.configs import SHAPES  # noqa: E402
 from repro_torch.core import (SelectNoise, SelectorState,  # noqa: E402
@@ -189,7 +199,12 @@ from repro_torch.launch import dryrun, multihost, serve, train  # noqa: E402
 from repro_torch.launch import sweep as sweep_cli  # noqa: E402
 from repro_torch.launch.steps import (make_init_state,  # noqa: E402
                                       make_prefill_step, make_serve_step,
-                                      make_train_step)
+                                      make_train_step, shard_batch,
+                                      shard_cache, shard_params,
+                                      shard_state)
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch import sharding  # noqa: E402
+from repro_torch.roofline.cost import CollectiveCounter  # noqa: E402
 from repro_torch.optim import adam  # noqa: E402
 from repro_torch.models import get_model, make_classifier  # noqa: E402
 from repro_torch.optim import tree_map  # noqa: E402
@@ -1257,6 +1272,10 @@ CACHE_METRIC = {"cs": "cosine", "divfl-selected": "l2"}
 #: the largest coordinate by round 2, where two of its quantized greedy
 #: gains are 7 quanta apart (measured on an H100; PERF.md)
 DIVFL_IDEAL_CARD_HORIZON = 2
+#: the rounds each baseline run is held to the CPU in, fewer than
+#: CPU_ROUNDS to keep the whole script in its time (3 before phase
+#: ``sharded`` joined it)
+BASELINE_CPU_ROUNDS = 1
 
 
 def feature_cache_check(server, metric: str, dev) -> dict:
@@ -1367,7 +1386,10 @@ def baseline_run(label: str, selector: str, kw, dev) -> dict:
            "test_acc": hist["test_acc"],
            "vs_cpu": first_rounds_vs_cpu(
                spec, dev, hist, f"baselines {label}",
-               DIVFL_IDEAL_CARD_HORIZON if label == "divfl" else CPU_ROUNDS)}
+               min(DIVFL_IDEAL_CARD_HORIZON if label == "divfl" else
+                   CPU_ROUNDS, BASELINE_CPU_ROUNDS),
+               select_rounds=BASELINE_CPU_ROUNDS,
+               cpu_rounds=BASELINE_CPU_ROUNDS)}
     if metric:
         out["cache_vs_plain"] = feature_cache_check(server, metric, dev)
     out["select_vs_plain"] = baseline_select_vs_plain(server, label,
@@ -1706,9 +1728,10 @@ LOCAL_RUNS = [
 ]
 #: the runs with per-client extras, run again through the graph driver
 LOCAL_GRAPH_RUNS = ("feddyn", "moon")
-#: the rounds each run is held to the CPU in, one fewer than the other
-#: phases' CPU_ROUNDS to keep the whole script in its time
-LOCAL_CPU_ROUNDS = 2
+#: the rounds each run is held to the CPU in, fewer than the other
+#: phases' CPU_ROUNDS to keep the whole script in its time (2 before
+#: phase ``sharded`` joined it)
+LOCAL_CPU_ROUNDS = 1
 
 
 def local_run(label: str, changes: dict, dev):
@@ -1892,7 +1915,7 @@ def decode_case(b, h, kv, dh, s, kv_dtype, dev, lengths=None, timed=False):
     out = {"case": tag, "splits": splits, "max_abs_err": err,
            "bit_equal": bit_equal,
            "plan": {key: getattr(plan, key) for key in (
-               "gc", "chunks", "gp", "e", "stages", "fixed")}}
+               "gc", "chunks", "gp", "e", "stages", "fixed", "copy_bytes")}}
     if timed:
         call = lambda k=k, v=v: decode_attention_kernel(q, k, v, lens, scale)
         out["ms"] = time_ms(call, 20)
@@ -2084,6 +2107,17 @@ def serve_kernels_phase(dev):
                                   lengths=[33, 160]))
         for shape in ((4, 16, 4, 96), (4, 4, 2, 512), (4, 32, 2, 128)):
             decode.append(decode_case(*shape, 512, dt, dev, timed=True))
+    # a dh off the 16-byte rows (ring rows padded to 8 values, 4-byte
+    # copies of f32, 2-byte loads of bf16): dh 4, 36, 100,
+    # 260 and the odd 1 and 37, G 1 and 8, whole lengths within 5e-5,
+    # and ragged lengths with a length-0 row at G 8; timed at dh 100 G 8
+    for dt in (torch.float32, torch.bfloat16):
+        for width in (4, 36, 100, 260, 1, 37):
+            for g in (1, 8):
+                decode.append(decode_case(2, 2 * g, 2, width, 200, dt, dev))
+            decode.append(decode_case(3, 16, 2, width, 300, dt, dev,
+                                      lengths=[0, 1, 300]))
+        decode.append(decode_case(4, 16, 2, 100, 512, dt, dev, timed=True))
     d32k = SHAPES["decode_32k"]
     for dt in (torch.float32, torch.bfloat16):   # the bf16 layer last
         decode.append(decode_case(d32k.global_batch, h, kv, dh,
@@ -4018,13 +4052,259 @@ def _at(tree, path: str):
     return tree
 
 
+#: the production dry run of phase ``sharded``: (arch, shape, policy)
+#: on the 16x16 mesh, each in a worker process with its own fake world
+SHARDED_DRYRUN = (("qwen2.5-3b", "train_4k", "2d"),
+                  ("qwen2.5-3b", "train_4k", "fsdp"),
+                  ("mixtral-8x22b", "decode_32k", "ep"),
+                  ("deepseek-coder-33b", "prefill_32k", "2d"))
+#: the one-card mesh's train and prefill length and batch
+SHARDED_SEQ, SHARDED_BATCH = SHAPES["train_4k"].seq_len, 1
+#: the runs whose steps are timed (fsdp's would read as 2d's: on a
+#: (1, 1) mesh both run the same local ops through DTensor)
+SHARDED_TIMED = ("unsharded", "2d")
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.double(), want.double()
+    scale = want.abs().max().item()
+    return (got - want).abs().max().item() / (scale if scale else 1.0)
+
+
+def _tree_check(got, want) -> dict:
+    """The largest leaf's max |got - want| / max |want| and whether
+    every leaf is bit-equal; ``want`` may lie on the host."""
+    got, want = _leaves(sharding.gather(got)), _leaves(want)
+    errs, equal = [], True
+    for g, w in zip(got, want):
+        w = w.to(g.device)
+        errs.append(_rel_err(g, w))
+        equal = equal and torch.equal(g, w)
+    return {"max_rel_err": max(errs), "bit_equal": equal,
+            "leaves": len(errs)}
+
+
+def _counted(fn):
+    """``fn()`` under a collective counter: (its result, the bytes of
+    each kind of collective it ran)."""
+    counter = CollectiveCounter()
+    with counter:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, counter.collectives
+
+
+def sharded_one_card(dev) -> dict:
+    """qwen2.5-3b at published width and depth on a real one-card mesh
+    (NCCL, world 1, the (1, 1) host mesh): a bf16 train step at
+    train_4k's length, a bf16 prefill of as many tokens and a decode
+    step after it, unsharded and on DTensor state under ``2d`` and
+    ``fsdp``, the same inputs from the same seed.  The first step of
+    each is held to the unsharded one (losses and params within 1e-6
+    relative, bit-equality expected: a (1, 1) mesh runs the same local
+    ops); a second step counts the collectives (none expected) under a
+    Python dispatch mode, and a third, with no mode over it, is timed
+    (unsharded and 2d; so are their prefill and decode).  Deterministic algorithms are on for the compared steps (the
+    embedding's backward on the card otherwise sums with atomics in
+    any order, and adam's first step, ±lr where |g| >> eps, turns a
+    last-bit difference of a gradient into one of lr) and off for the
+    timed ones."""
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    try:
+        return _sharded_one_card(dev)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+
+
+def _exact(on: bool) -> None:
+    torch.use_deterministic_algorithms(on, warn_only=True)
+
+
+def _sharded_one_card(dev) -> dict:
+    api = get_model("qwen2.5-3b")
+    cfg = api.cfg
+    bf16 = torch.bfloat16
+    mesh = make_host_mesh("cuda")
+    policies = {"unsharded": None,
+                **{m: sharding.ShardingPolicy(mesh, m)
+                   for m in ("2d", "fsdp")}}
+    batch = _qwen_batch(cfg, SHARDED_BATCH, SHARDED_SEQ, dev)
+    prompt = {"tokens": batch["tokens"]}
+    out = {"batch": SHARDED_BATCH, "seq_len": SHARDED_SEQ}
+    base = {}
+    for name, pol in policies.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        sharding.REPLICATED_OPS.clear()
+        sharding.COPIED_VIEWS.clear()
+        row = {}
+        opt = adam(1e-4)
+        state = make_init_state(api, opt)(0, device=dev)
+        step = make_train_step(api, opt, dtype=bf16)
+        data = batch
+        if pol is not None:
+            state, data = shard_state(state, pol), shard_batch(batch, pol)
+        with sharding.use_policy(pol):
+            # the compared step with no dispatch mode over it: a Python
+            # mode changes how a bias's gradient is reduced, by the last
+            # bit (adam's first step turns that into a change of lr)
+            _exact(True)
+            state, m0 = step(state, data)
+            torch.cuda.synchronize()
+            _exact(False)
+            row["train_loss"] = loss = float(m0["loss"])
+            if pol is None:
+                base["loss"] = loss
+                base["params"] = tree_map(lambda t: t.to("cpu", copy=True),
+                                          state["params"])
+            else:
+                row["train_loss_rel_err"] = abs(loss - base["loss"]) / abs(
+                    base["loss"])
+                row["train_params"] = _tree_check(state["params"],
+                                                  base["params"])
+                row["train_replicated_ops"] = dict(sharding.REPLICATED_OPS)
+                row["train_copied_views"] = dict(sharding.COPIED_VIEWS)
+            if pol is not None:     # a step under the collective counter
+                (state, _), row["train_collectives"] = _counted(
+                    lambda: step(state, data))
+            if name in SHARDED_TIMED:    # a step with no mode over it
+                (state, m1), row["train_ms"] = _timed(
+                    lambda: step(state, data))
+                row["timed_step_loss"] = float(m1["loss"])
+                del m1
+        del state, m0
+        out[name] = row
+    del base["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = tree_map(lambda t: t.to(bf16), api.init(0, device=dev))
+    prefill = make_prefill_step(api, dtype=bf16, cache_extra=1)
+    serve_step = make_serve_step(api, dtype=bf16)
+    with torch.no_grad():
+        for name, pol in policies.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            row = out[name]
+            p = params if pol is None else shard_params(params, pol)
+            b = prompt if pol is None else shard_batch(prompt, pol)
+            with sharding.use_policy(pol):
+                (tok, cache), pcoll = _counted(lambda: prefill(p, b))
+                if name in SHARDED_TIMED:
+                    _, row["prefill_ms"] = _timed(lambda: prefill(p, b))
+                dec = {"token": tok, "pos": SHARDED_SEQ}
+                if pol is not None:
+                    dec = shard_batch(dec, pol)
+                (tok2, cache), dcoll = _counted(
+                    lambda: serve_step(p, cache, dec))
+                if name in SHARDED_TIMED:
+                    (_, cache), row["decode_ms"] = _timed(
+                        lambda: serve_step(p, cache, dec))
+            tok, tok2 = sharding.gather(tok), sharding.gather(tok2)
+            kv = {k: sharding.gather(v)[:, :, :SHARDED_SEQ + 1]
+                  for k, v in cache.items()}
+            if pol is None:
+                base.update(tok=tok, tok2=tok2, kv={
+                    k: v.cpu() for k, v in kv.items()})
+            else:
+                row["prefill_token_equal"] = torch.equal(tok, base["tok"])
+                row["decode_token_equal"] = torch.equal(tok2, base["tok2"])
+                row["cache"] = _tree_check(kv, base["kv"])
+                row["serve_collectives"] = {
+                    k: pcoll[k] + dcoll.get(k, 0.0) for k in pcoll}
+            del cache, kv, tok, tok2, p
+    del params
+    for name, pol in policies.items():
+        if pol is None:
+            continue
+        row = out[name]
+        require(f"sharded {name}: train loss off the unsharded one's",
+                row["train_loss_rel_err"] <= 1e-6)
+        require(f"sharded {name}: params off the unsharded step's",
+                row["train_params"]["max_rel_err"] <= 1e-6)
+        require(f"sharded {name}: prefill or decode token differs",
+                row["prefill_token_equal"] and row["decode_token_equal"])
+        require(f"sharded {name}: cache off the unsharded one",
+                row["cache"]["max_rel_err"] <= 1e-6)
+        moved = (sum(row["train_collectives"].values())
+                 + sum(row["serve_collectives"].values()))
+        require(f"sharded {name}: {moved} collective bytes on one card",
+                moved == 0)
+    return out
+
+
+def _dryrun_row(rec) -> dict:
+    """One production dry-run record: per-chip state and cache, FLOPs,
+    bytes, peak and collective bytes, and the roofline's terms."""
+    require(f"sharded dryrun {rec['arch']} {rec['shape']} "
+            f"{rec.get('policy')}: {rec['status']} {rec.get('error', '')}",
+            rec["status"] == "ok")
+    if rec["status"] != "ok":
+        return {"status": rec["status"], "error": rec.get("error")}
+    r = rec["roofline"]
+    coll = rec["collectives_bytes"]
+    require(f"sharded dryrun {rec['arch']}: no collectives on 256 chips",
+            coll["total_weighted"] > 0 and rec["chips"] == 256)
+    return {"chips": rec["chips"],
+            "state_gb_per_chip": rec["state_bytes_per_chip"] / 1e9,
+            "cache_gb_per_chip": rec.get("cache_bytes_per_chip", 0) / 1e9,
+            "flops_per_chip": rec["flops_per_chip"],
+            "bytes_per_chip": rec["bytes_per_chip"],
+            "peak_gb_per_chip": rec["peak_live_bytes"] / 1e9,
+            "collectives_bytes": coll,
+            "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+            "collective_s": r["collective_s"], "bottleneck": r["bottleneck"],
+            "useful_flops_ratio": r["useful_flops_ratio"],
+            "replicated_ops": rec["replicated_ops"],
+            "copied_views": rec["copied_views"],
+            "count_s": rec["count_s"]}
+
+
+def sharded_phase(dev) -> None:
+    """The multi-device layer: the production dry run of
+    :data:`SHARDED_DRYRUN` in worker processes on ``meta`` while the card
+    runs :func:`sharded_one_card` on a real one-card mesh."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"phase": "sharded", "card": CARD}
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    with concurrent.futures.ProcessPoolExecutor(len(SHARDED_DRYRUN),
+                                                mp_context=ctx) as ex:
+        futs = {f"{a}/{sh}/pod1/{pol}": dryrun.mesh_combo_in_worker(
+            a, sh, "pod1", pol, pool=ex) for a, sh, pol in SHARDED_DRYRUN}
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                world_size=1, rank=0)
+        try:
+            out["one_card_mesh"] = sharded_one_card(dev)
+        finally:
+            dist.destroy_process_group()
+        out["one_card_seconds"] = time.perf_counter() - t0
+        out["dryrun"] = {}
+        for key, fut in futs.items():
+            try:
+                out["dryrun"][key] = _dryrun_row(fut.result())
+            except Exception as e:  # the worker's failure, recorded
+                require(f"sharded dryrun {key}: {e!r}", False)
+                out["dryrun"][key] = {"status": "error", "error": repr(e)}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     alone = ("graph_rounds", "lm_train", "local_algos", "finetune_example",
              "scenarios", "telemetry", "transformer_family",
-             "model_families", "substrate")
+             "model_families", "substrate", "sharded")
     if argv and (len(argv) > 1 or argv[0] not in alone):
         print(f"usage: chip_smoke.py [{' | '.join(alone)}]", file=sys.stderr)
         return 2
@@ -4059,6 +4339,7 @@ def main(argv) -> int:
          "model_families": lambda: (serve_kernels_phase(dev),
                                     model_families_phase(dev)),
          "substrate": lambda: substrate_phase(dev),
+         "sharded": lambda: sharded_phase(dev),
          }[argv[0]]()
         for f in failures:
             print("FAILED:", f, file=sys.stderr)
@@ -4089,6 +4370,7 @@ def main(argv) -> int:
     scn_launches, scn_epilogues = scenarios_phase(dev)
     tel_launches = telemetry_phase(dev)
     sub_launches, sub_epilogues = substrate_phase(dev)
+    sharded_phase(dev)
 
     # the strip kernel's three epilogues, each counted on its own path:
     # arccos in the HiCS slice and its bf16 run, cosine in the cs run,

@@ -72,8 +72,17 @@
 //   24; 264: E 16, the last lane 8 values), a 16-byte chunk loop for
 //   the copies, and 3 stages in the ring where they fit in shared
 //   memory (f32 rows wider than 302 values take 2, wider than 453 one).
-//   A dh that is not a multiple of 8 is refused: a row must be whole
-//   16-byte chunks, for cp.async and for the vector loads.
+// * Any other dh from 1 to 512, as the TPU kernel takes.  Such a row is
+//   not whole 16-byte chunks, in device memory or in the ring, so it
+//   takes the runtime width with a narrower copy: its ring rows are
+//   padded to SR = dh rounded up to 8 values (every vector load of the
+//   loop stays aligned), the padding is zero-filled like a row past the
+//   length, and each f32 value is one 4-byte cp.async.ca; bf16 rows
+//   (2-byte aligned at an odd dh, below cp.async's smallest copy) are
+//   loaded and stored by the lanes themselves, a tile ahead as the
+//   copies are, one instantiation for every such dh.  The lanes past
+//   dh hold zeros in q and drop their accumulators, as at dh 112, so
+//   the padding adds nothing.  The 16-byte widths' code is unchanged.
 // * bf16 is widened in registers, a shift or a mask a value, as the
 //   values leave shared memory.
 // * The arithmetic is f32 FMA on the CUDA cores, no tensor-core
@@ -103,6 +112,13 @@ __device__ __forceinline__ void copy16(unsigned dst, const void* src,
 }
 __device__ __forceinline__ void copy_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// cp.async of 4 bytes, `bytes` (4 or 0) of them read.
+__device__ __forceinline__ void copy4(unsigned dst, const void* src,
+                                      unsigned bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 template <int N>
 __device__ __forceinline__ void copy_wait() {
@@ -241,18 +257,37 @@ __device__ __forceinline__ void copy_chunk(unsigned base, const T* kb,
 }
 
 // One warp's BS / WARPS = PW positions of a tile, K rows then V rows,
-// into one stage of its ring.  A row is DH values, a whole number of
-// 16-byte chunks (dh 112: 28 f32 or 14 bf16 chunks, 14 or 7 a lane):
-// unrolled where DH is a template constant, a loop over the lanes
-// where it is the runtime width (DH_ = 0).
-template <typename T, int DH_>
+// into one stage of its ring.  With CB = 16 a row is DH values, a whole
+// number of 16-byte chunks (dh 112: 28 f32 or 14 bf16 chunks, 14 or 7 a
+// lane): unrolled where DH is a template constant, a loop over the
+// lanes where it is the runtime width (DH_ = 0).  With CB = 4 or 2 a
+// row is dh values in device memory and sr (dh rounded up to 8) in the
+// ring, copied CB bytes at a time, the padding zero-filled: 4-byte
+// cp.async copies, or (CB = 2, an odd dh's bf16 rows) loads and stores.
+template <typename T, int DH_, int CB>
 __device__ __forceinline__ void load_tile(T* stage, const T* kb, const T* vb,
                                           int pos0, int len,
                                           size_t pos_stride, int lane,
-                                          int dh) {
+                                          int dh, int sr) {
   constexpr int VEC = 16 / sizeof(T);
   const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(stage));
-  if constexpr (DH_ != 0) {
+  if constexpr (CB != 16) {
+    constexpr int W = CB / sizeof(T);    // values a copy
+    const int ch = sr / W;               // copies a ring row
+    for (int c = lane; c < 2 * PW * ch; c += 32) {
+      const int row = c / ch, col = (c - row * ch) * W;
+      const int pos = pos0 + row % PW;
+      const bool ok = pos < len && col < dh;
+      const T* src = (row < PW ? kb : vb) +
+                     (ok ? static_cast<size_t>(pos) * pos_stride + col : 0);
+      if constexpr (CB == 4) {
+        copy4(base + static_cast<unsigned>((row * sr + col) * sizeof(T)), src,
+              ok ? 4u : 0u);
+      } else {
+        stage[row * sr + col] = ok ? *src : T(0);
+      }
+    }
+  } else if constexpr (DH_ != 0) {
     constexpr int CH = DH_ / VEC;     // 16-byte chunks a row
     static_assert(DH_ % VEC == 0 && (2 * PW * CH) % 32 == 0,
                   "a tile's rows must split into whole 16-byte chunks a lane");
@@ -268,29 +303,37 @@ __device__ __forceinline__ void load_tile(T* stage, const T* kb, const T* vb,
   }
 }
 
-// The block's shared memory for row width dh: each warp's ring of
-// STAGES stages of PW K rows and PW V rows in T, then each warp's PW·GP
+// The block's shared memory for row width dh, ring rows of sr values
+// (sr = dh but on the narrow copies' path): each warp's ring of STAGES
+// stages of PW K rows and PW V rows in T, then each warp's PW·GP
 // probabilities.  The merge of the warps' (acc, m, l) reuses the ring,
 // or runs past it where the ring is the smaller (few stages, few
 // lanes), so the probabilities start after the larger of the two.
 template <typename T, int GP, int STAGES>
 struct Layout {
-  __host__ __device__ static constexpr size_t stage(int dh) {
-    return static_cast<size_t>(2 * PW) * dh;   // elements of T
+  __host__ __device__ static constexpr size_t stage(int sr) {
+    return static_cast<size_t>(2 * PW) * sr;   // elements of T
   }
-  __host__ __device__ static constexpr size_t ring(int dh) {
-    return sizeof(T) * WARPS * STAGES * stage(dh);
+  __host__ __device__ static constexpr size_t ring(int sr) {
+    return sizeof(T) * WARPS * STAGES * stage(sr);
   }
   __host__ __device__ static constexpr size_t merge(int dh) {
     return sizeof(float) * WARPS * GP * (dh + 2);
   }
-  __host__ __device__ static constexpr size_t probs_at(int dh) {
-    return ring(dh) > merge(dh) ? ring(dh) : merge(dh);
+  __host__ __device__ static constexpr size_t probs_at(int sr, int dh) {
+    return ring(sr) > merge(dh) ? ring(sr) : merge(dh);
   }
-  __host__ __device__ static constexpr size_t smem(int dh) {
-    return probs_at(dh) + sizeof(float) * WARPS * PW * GP;
+  __host__ __device__ static constexpr size_t smem(int sr, int dh) {
+    return probs_at(sr, dh) + sizeof(float) * WARPS * PW * GP;
   }
 };
+
+// The ring's row width: dh, or dh rounded up to 8 values where the rows
+// are copied in narrower pieces than 16 bytes (CB < 16).
+template <int CB>
+__host__ __device__ constexpr int ring_row(int dh) {
+  return CB == 16 ? dh : (dh + 7) & ~7;
+}
 
 // Block (bhc, split) of the (B·KV·C) × P grid, bhc = (b·KV + h)·C + c:
 // the partial of split `split` of chunk c of (batch b, KV head h), or
@@ -298,8 +341,9 @@ struct Layout {
 // [c·gc, min((c+1)·gc, g)) of the KV head's g (C = ceil(g / gc) chunks;
 // one chunk, gc = g, for every registered config).  DH_ is the stored
 // row width as a template constant, or 0 for the runtime width dh; E
-// the values a lane (E | dh wherever DH_ is set).
-template <typename T, int GP, int E, int DH_, int STAGES>
+// the values a lane (E | dh wherever DH_ is set); CB the bytes of one
+// copy into the ring (16, or 4 and 2 on the narrow path).
+template <typename T, int GP, int E, int DH_, int STAGES, int CB>
 __global__ void __launch_bounds__(THREADS, 3)
 decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ lengths,
@@ -308,6 +352,7 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
                     int splits, float scale) {
   using L = Layout<T, GP, STAGES>;
   const int DH = DH_ ? DH_ : dh;
+  const int SR = DH_ ? DH_ : ring_row<CB>(dh);   // a ring row's values
   constexpr int RS = PW < 32 / GP ? PW : 32 / GP;  // rows a logit step
   constexpr int NS = PW / RS;                      // logit steps a tile
   constexpr int N = GP * RS;                       // partial sums a step
@@ -318,10 +363,10 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
   extern __shared__ float4 smem4[];
   T* ring = reinterpret_cast<T*>(smem4);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int stage = static_cast<int>(L::stage(DH));
+  const int stage = static_cast<int>(L::stage(SR));
   T* my_ring = ring + warp * STAGES * stage;
   float* probs = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) +
-                                          L::probs_at(DH)) +
+                                          L::probs_at(SR, DH)) +
                  warp * PW * GP;
 
   const int bhc = blockIdx.x / splits, split = blockIdx.x - bhc * splits;
@@ -373,8 +418,8 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < n_tiles)
-      load_tile<T, DH_>(my_ring + i * stage, kb, vb, pos_w + i * BS, len,
-                        pos_stride, lane, DH);
+      load_tile<T, DH_, CB>(my_ring + i * stage, kb, vb, pos_w + i * BS,
+                            len, pos_stride, lane, DH, SR);
     copy_commit();
   }
 
@@ -382,13 +427,13 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
     __syncwarp();  // every lane is done with tile i−1's stage and probs
     const int nxt = i + STAGES - 1;
     if (nxt < n_tiles)
-      load_tile<T, DH_>(my_ring + (nxt % STAGES) * stage, kb, vb,
-                        pos_w + nxt * BS, len, pos_stride, lane, DH);
+      load_tile<T, DH_, CB>(my_ring + (nxt % STAGES) * stage, kb, vb,
+                            pos_w + nxt * BS, len, pos_stride, lane, DH, SR);
     copy_commit();
     copy_wait<STAGES - 1>();  // this lane's copies of tile i landed
     __syncwarp();             // and every lane's
     const T* ks = my_ring + (i % STAGES) * stage;
-    const T* vs = ks + PW * DH;
+    const T* vs = ks + PW * SR;
     const int pos0 = pos_w + i * BS;
 
     // logits: one read of each K value, G partial dot products
@@ -401,7 +446,7 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
       for (int r = 0; r < RS; ++r) {
         float kr[E] = {};
         if (holds)
-          load_lane<T, E>(ks + (s * RS + (r ^ row_of)) * DH + lane * E, kr,
+          load_lane<T, E>(ks + (s * RS + (r ^ row_of)) * SR + lane * E, kr,
                           nval);
 #pragma unroll
         for (int gg = 0; gg < GP; ++gg) {
@@ -455,7 +500,7 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < PW; ++j) {
       float vr[E] = {};
-      if (holds) load_lane<T, E>(vs + j * DH + lane * E, vr, nval);
+      if (holds) load_lane<T, E>(vs + j * SR + lane * E, vr, nval);
       float pj[GP];
       load_probs<GP>(probs + j * GP, pj);
 #pragma unroll
@@ -536,16 +581,17 @@ decode_merge_kernel(const float* __restrict__ ws, float* __restrict__ out,
       as / fmaxf(ls, 1e-30f);
 }
 
-template <typename T, int GP, int E, int DH, int STAGES>
+template <typename T, int GP, int E, int DH, int STAGES, int CB>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, void* ws, int b, int s_len, int kv, int g, int gc,
            int chunks, int dh, int splits, float scale, cudaStream_t st) {
-  const size_t smem = Layout<T, GP, STAGES>::smem(dh);
+  const size_t smem =
+      Layout<T, GP, STAGES>::smem(DH ? DH : ring_row<CB>(dh), dh);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_split_kernel<T, GP, E, DH, STAGES>,
+      decode_split_kernel<T, GP, E, DH, STAGES, CB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_split_kernel<T, GP, E, DH, STAGES>
+  decode_split_kernel<T, GP, E, DH, STAGES, CB>
       <<<b * kv * chunks * splits, THREADS, smem, st>>>(
           static_cast<const float*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const int*>(lengths),
@@ -561,80 +607,103 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   return static_cast<int>(cudaGetLastError());
 }
 
+#define DECODE_LAUNCH(GP, E, DH, STAGES, CB)                            \
+  return launch<T, GP, E, DH, STAGES, CB>(q, k, v, lengths, out, ws, b,   \
+                                          s_len, kv, g, gc, chunks, dh,   \
+                                          splits, scale, st)
+
+// The runtime row width, copied CB bytes at a time: 3 stages in the
+// ring where they fit, and the f32 ring of a row wider than 302 values
+// 2 stages, of one wider than 453 one (bf16 fits 3 up to 512).
+template <typename T, int CB>
+int runtime_width(const void* q, const void* k, const void* v,
+                  const void* lengths, void* out, void* ws, int b,
+                  int s_len, int kv, int g, int gc, int chunks, int dh,
+                  int gp, int e, int stages, int splits, float scale,
+                  cudaStream_t st) {
+  if (stages == 3) {
+    switch (e * 100 + gp) {
+      case 202: DECODE_LAUNCH(2, 2, 0, 3, CB);
+      case 204: DECODE_LAUNCH(4, 2, 0, 3, CB);
+      case 208: DECODE_LAUNCH(8, 2, 0, 3, CB);
+      case 216: DECODE_LAUNCH(16, 2, 0, 3, CB);
+      case 402: DECODE_LAUNCH(2, 4, 0, 3, CB);
+      case 404: DECODE_LAUNCH(4, 4, 0, 3, CB);
+      case 408: DECODE_LAUNCH(8, 4, 0, 3, CB);
+      case 802: DECODE_LAUNCH(2, 8, 0, 3, CB);
+      case 804: DECODE_LAUNCH(4, 8, 0, 3, CB);
+      case 1602: DECODE_LAUNCH(2, 16, 0, 3, CB);
+    }
+  }
+  if constexpr (sizeof(T) == 4) {
+    if (e == 16 && gp == 2 && stages == 2) DECODE_LAUNCH(2, 16, 0, 2, CB);
+    if (e == 16 && gp == 2 && stages == 1) DECODE_LAUNCH(2, 16, 0, 1, CB);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // The plan comes from kernels/decode_attention.py: decode_plan.  GP is
 // the chunk's gc padded to a power of two in {2, 4, 8, 16}, E = max(2,
 // ceil(dh / 32) rounded up to a power of two), GP·E <= 32 (q and the
 // accumulators stay in registers).  The registered widths dh 64, 112,
 // 128 and 256 (fixed = 1) keep their compile-time row width and 3
-// stages; every other dh (a multiple of 8 up to 512) takes the runtime
-// width, with the stages that fit in shared memory (f32 past dh 302:
-// 2, past 453: 1).
+// stages; every other dh from 1 to 512 takes the runtime width, with
+// 16-byte copies where dh is a multiple of 8, else 4-byte copies (f32)
+// or 2-byte loads (bf16).
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v,
              const void* lengths, void* out, void* ws, int b, int s_len,
              int kv, int g, int gc, int chunks, int dh, int gp, int e,
              int stages, int fixed, int splits, float scale,
              cudaStream_t st) {
-#define DECODE_LAUNCH(GP, E, DH, STAGES)                                  \
-  return launch<T, GP, E, DH, STAGES>(q, k, v, lengths, out, ws, b, s_len, \
-                                      kv, g, gc, chunks, dh, splits, scale, \
-                                      st)
   if (fixed && stages == 3) {
+    constexpr int CB = 16;
     if (dh == 64 && e == 2) {
       switch (gp) {
-        case 2: DECODE_LAUNCH(2, 2, 64, 3);
-        case 4: DECODE_LAUNCH(4, 2, 64, 3);
-        case 8: DECODE_LAUNCH(8, 2, 64, 3);
-        case 16: DECODE_LAUNCH(16, 2, 64, 3);
+        case 2: DECODE_LAUNCH(2, 2, 64, 3, CB);
+        case 4: DECODE_LAUNCH(4, 2, 64, 3, CB);
+        case 8: DECODE_LAUNCH(8, 2, 64, 3, CB);
+        case 16: DECODE_LAUNCH(16, 2, 64, 3, CB);
       }
     }
     if (dh == 112 && e == 4) {
       switch (gp) {
-        case 2: DECODE_LAUNCH(2, 4, 112, 3);
-        case 4: DECODE_LAUNCH(4, 4, 112, 3);
-        case 8: DECODE_LAUNCH(8, 4, 112, 3);
+        case 2: DECODE_LAUNCH(2, 4, 112, 3, CB);
+        case 4: DECODE_LAUNCH(4, 4, 112, 3, CB);
+        case 8: DECODE_LAUNCH(8, 4, 112, 3, CB);
       }
     }
     if (dh == 128 && e == 4) {
       switch (gp) {
-        case 2: DECODE_LAUNCH(2, 4, 128, 3);
-        case 4: DECODE_LAUNCH(4, 4, 128, 3);
-        case 8: DECODE_LAUNCH(8, 4, 128, 3);
+        case 2: DECODE_LAUNCH(2, 4, 128, 3, CB);
+        case 4: DECODE_LAUNCH(4, 4, 128, 3, CB);
+        case 8: DECODE_LAUNCH(8, 4, 128, 3, CB);
       }
     }
     if (dh == 256 && e == 8) {
       switch (gp) {
-        case 2: DECODE_LAUNCH(2, 8, 256, 3);
-        case 4: DECODE_LAUNCH(4, 8, 256, 3);
+        case 2: DECODE_LAUNCH(2, 8, 256, 3, CB);
+        case 4: DECODE_LAUNCH(4, 8, 256, 3, CB);
       }
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (fixed || dh % 8 || dh > 32 * e)
+  if (fixed || dh < 1 || dh > 32 * e)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (stages == 3) {
-    switch (e * 100 + gp) {
-      case 202: DECODE_LAUNCH(2, 2, 0, 3);
-      case 204: DECODE_LAUNCH(4, 2, 0, 3);
-      case 208: DECODE_LAUNCH(8, 2, 0, 3);
-      case 216: DECODE_LAUNCH(16, 2, 0, 3);
-      case 402: DECODE_LAUNCH(2, 4, 0, 3);
-      case 404: DECODE_LAUNCH(4, 4, 0, 3);
-      case 408: DECODE_LAUNCH(8, 4, 0, 3);
-      case 802: DECODE_LAUNCH(2, 8, 0, 3);
-      case 804: DECODE_LAUNCH(4, 8, 0, 3);
-      case 1602: DECODE_LAUNCH(2, 16, 0, 3);
-    }
-  }
-  // the f32 ring of a row wider than 302 values fits 2 stages, of one
-  // wider than 453 one (bf16 fits 3 up to 512)
-  if constexpr (sizeof(T) == 4) {
-    if (e == 16 && gp == 2 && stages == 2) DECODE_LAUNCH(2, 16, 0, 2);
-    if (e == 16 && gp == 2 && stages == 1) DECODE_LAUNCH(2, 16, 0, 1);
-  }
-#undef DECODE_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dh % 8 == 0)
+    return runtime_width<T, 16>(q, k, v, lengths, out, ws, b, s_len, kv, g,
+                                gc, chunks, dh, gp, e, stages, splits, scale,
+                                st);
+  if constexpr (sizeof(T) == 4)
+    return runtime_width<T, 4>(q, k, v, lengths, out, ws, b, s_len, kv, g,
+                               gc, chunks, dh, gp, e, stages, splits, scale,
+                               st);
+  else
+    return runtime_width<T, 2>(q, k, v, lengths, out, ws, b, s_len, kv, g,
+                               gc, chunks, dh, gp, e, stages, splits, scale,
+                               st);
 }
+#undef DECODE_LAUNCH
 
 }  // namespace
 

@@ -11,8 +11,10 @@ to all the chunk's query heads held in registers; a second launch
 merges the splits' partial (m, l, acc) in increasing split order.
 :func:`decode_plan` chunks a KV head's G query heads so that the
 registers hold them (one chunk for every registered config) and picks
-the lane width and the ring's stages for any dh that is a multiple of
-8 up to 512; a dh off the 16-byte rows is refused.  It reads the valid part of K and V once,
+the lane width and the ring's stages for any dh from 1 to 512, as the
+TPU kernel takes: a dh off the 16-byte rows pads its ring rows to a
+multiple of 8 values and copies them 4 (f32) or 2 (bf16) bytes at a time
+(:attr:`DecodePlan.copy_bytes`).  It reads the valid part of K and V once,
 so on the H100 it is bound by memory bytes.  The source's note says
 what each part of the design does about that.
 
@@ -47,8 +49,8 @@ MIN_SPLIT_TILES = 2
 #: stop paying for themselves
 WAVE_FILL = 0.9
 #: the stored row widths the kernel is built for with a compile-time
-#: row width; any other dh that is a multiple of 8 up to
-#: :data:`MAX_HEAD_DIM` takes the runtime width
+#: row width; any other dh up to :data:`MAX_HEAD_DIM` takes the runtime
+#: width
 HEAD_DIMS = (64, 112, 128, 256)
 MAX_HEAD_DIM = 512
 #: GP·32·E, the values of q (and of the accumulators) the registers of
@@ -62,7 +64,9 @@ class DecodePlan:
     ``chunks`` blocks of ``gc`` heads (the last may hold fewer), each
     padded to ``gp``; ``e`` values a lane; ``stages`` tiles in each
     warp's ring; ``fixed`` for the registered widths' compile-time
-    row."""
+    row; ``copy_bytes`` the bytes of one copy of a K/V row into the
+    ring: 16 where dh is a multiple of 8, else 4 (f32) or 2 (bf16), the
+    ring row then padded to :func:`ring_row`."""
     g: int
     dh: int
     gc: int
@@ -71,6 +75,7 @@ class DecodePlan:
     e: int
     stages: int
     fixed: bool
+    copy_bytes: int = 16
 
 
 def group_pad(g: int) -> int:
@@ -85,23 +90,33 @@ def lane_width(dh: int) -> int:
     return max(2, 1 << (-(-dh // 32) - 1).bit_length())
 
 
+def ring_row(dh: int) -> int:
+    """The values of a K/V row in the kernel's ring: dh, or dh rounded
+    up to 8 where it is not a multiple of 8."""
+    return -(-dh // 8) * 8
+
+
+def row_copy_bytes(dh: int, elt: int) -> int:
+    """The bytes of one copy of a row into the ring (``DecodePlan``)."""
+    if dh % 8 == 0:
+        return 16
+    return 4 if elt == 4 else 2
+
+
 def _smem(gp: int, dh: int, elt: int, stages: int) -> int:
-    ring = WARPS * stages * 2 * PW * dh * elt
+    ring = WARPS * stages * 2 * PW * ring_row(dh) * elt
     merge = 4 * WARPS * gp * (dh + 2)
     return max(ring, merge) + WARPS * PW * gp * 4
 
 
 def decode_plan(g: int, dh: int, elt: int) -> DecodePlan:
     """The kernel's plan for G query heads a KV head at width dh, K/V
-    of ``elt`` bytes a value.  Raises for a dh the kernel does not take:
-    one that is not a multiple of 8 (a row must be whole 16-byte chunks,
-    for ``cp.async`` and the vector loads) or is past 512."""
+    of ``elt`` bytes a value.  Raises for a dh outside 1 to 512."""
     if g < 1:
         raise ValueError(f"need G >= 1, got {g}")
-    if dh % 8 or not 0 < dh <= MAX_HEAD_DIM:
+    if not 0 < dh <= MAX_HEAD_DIM:
         raise ValueError(
-            f"the kernel copies K/V rows in 16-byte chunks, so it takes a "
-            f"dh that is a multiple of 8 up to {MAX_HEAD_DIM}, got dh={dh}")
+            f"the kernel takes a dh from 1 to {MAX_HEAD_DIM}, got dh={dh}")
     e = lane_width(dh)
     gp_max = min(16, MAX_GROUP_WIDTH // (32 * e))
     chunks = -(-g // gp_max)
@@ -112,13 +127,15 @@ def decode_plan(g: int, dh: int, elt: int) -> DecodePlan:
     if not stages:
         raise ValueError(f"G={g}, dh={dh} needs {_smem(gp, dh, elt, 1)} "
                          f"bytes of shared memory, over {SMEM_LIMIT}")
-    return DecodePlan(g, dh, gc, chunks, gp, e, stages, dh in HEAD_DIMS)
+    return DecodePlan(g, dh, gc, chunks, gp, e, stages, dh in HEAD_DIMS,
+                      row_copy_bytes(dh, elt))
 
 
 def smem_bytes(g: int, dh: int, elt: int) -> int:
     """The kernel's dynamic shared memory, as ``Layout::smem`` in the
     source: each warp's ring of the plan's stages of PW K rows and PW V
-    rows in the stored type (``elt`` bytes a value), or the warps'
+    rows of :func:`ring_row` values in the stored type (``elt`` bytes a
+    value), or the warps'
     merge area where that is larger, then each warp's probabilities
     (PW·GP f32)."""
     plan = decode_plan(g, dh, elt)

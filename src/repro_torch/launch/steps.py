@@ -6,13 +6,23 @@ sample), as the reference's ``launch/steps.py`` builds them.
 The compute dtype defaults to bf16, as the reference's; the serving
 driver passes f32 (``launch/serve.py``).  Greedy sampling takes the
 first maximum (``torch.argmax``, as ``jnp.argmax``).  The LM
-fine-tuning driver (``launch/train.py``) has its own local update."""
+fine-tuning driver (``launch/train.py``) has its own local update.
+
+Under a sharding policy (``sharding.use_policy``) the steps take
+``DTensor`` state and batches (:func:`shard_state`, :func:`shard_batch`)
+and run the same code: DTensor and the models' ``constrain`` calls
+place the activations, the optimizer's m and v take the params'
+placements (ZeRO-3 on the mesh), and the update runs on each rank's
+shards.  Their metrics come back as whole tensors."""
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.optim import clip_by_global_norm_, tree_map
 from repro_torch.roofline.cost import phase
+from repro_torch.sharding import (batch_pspecs, cache_pspecs, param_pspecs,
+                                  to_shardings)
 
 
 def _paths(tree, prefix=()):
@@ -26,6 +36,49 @@ def _get(tree, path):
     for k in path:
         tree = tree[k]
     return tree
+
+
+def _local(t):
+    """This rank's shard of a DTensor, a plain tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _placed_like(g, p):
+    """A gradient in its param's placements (a reduce-scatter where it
+    comes back partial or otherwise placed)."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def shard_params(params, policy):
+    """Params as DTensors placed by ``param_pspecs``."""
+    return to_shardings(params, param_pspecs(params, policy), policy)
+
+
+def shard_state(state, policy):
+    """A train state's params, and the optimizer's per-leaf trees (adam's
+    m and v), as DTensors in the params' placements; the scalars
+    (``count``, ``step``) stay plain tensors, replicated."""
+    specs = param_pspecs(state["params"], policy)
+    opt = {k: to_shardings(v, specs, policy) if isinstance(v, dict) else v
+           for k, v in state["opt"].items()}
+    return dict(state, params=to_shardings(state["params"], specs, policy),
+                opt=opt)
+
+
+def shard_batch(batch, policy):
+    """A batch's tensors over the data axes (``batch_pspecs``)."""
+    return to_shardings(batch, batch_pspecs(batch, policy), policy)
+
+
+def shard_cache(cache, policy):
+    """A decode cache placed by ``cache_pspecs``."""
+    return to_shardings(cache, cache_pspecs(cache, policy), policy)
 
 
 def make_train_step(api, optimizer, *, dtype=torch.bfloat16,
@@ -44,7 +97,10 @@ def make_train_step(api, optimizer, *, dtype=torch.bfloat16,
     writes the new params and optimizer state into its tensors (the
     same numbers as the reference's functional update), so that no
     second copy of the params, the optimizer state or the updates is
-    ever live, only one layer's slice of one leaf."""
+    ever live, only one layer's slice of one leaf.  On DTensors the
+    gradients are first placed as their params (``_placed_like``), and
+    the update runs on each rank's local shards, a layer's slice at a
+    time as on one card."""
     def train_step(state, batch):
         params, opt = state["params"], state["opt"]
         paths = _paths(params)
@@ -66,7 +122,8 @@ def make_train_step(api, optimizer, *, dtype=torch.bfloat16,
             for leaf in leaves:
                 leaf.requires_grad_(False)
         del compute, loss
-        grads = [torch.zeros_like(p) if g is None else g.to(p.dtype)
+        grads = [torch.zeros_like(p) if g is None else
+                 _placed_like(g.to(p.dtype), p)
                  for g, p in zip(grads, leaves)]
         phase("update")
         gnorm = clip_by_global_norm_(grads, clip_norm)
@@ -76,21 +133,21 @@ def make_train_step(api, optimizer, *, dtype=torch.bfloat16,
         with torch.no_grad():
             for i, path in enumerate(paths):
                 # a stacked leaf (layers on axis 0) a layer at a time, its
-                # m and v written back in place
-                leaf, grad = leaves[i], grads[i]
+                # m and v written back in place; a DTensor's local shard
+                leaf, grad = _local(leaves[i]), _local(grads[i])
                 parts = range(leaf.shape[0]) if leaf.dim() >= 3 else [...]
                 for j in parts:
-                    sub = {k: (_get(opt[k], path)[j] if k in trees else v)
-                           for k, v in opt.items()}
+                    sub = {k: (_local(_get(opt[k], path))[j] if k in trees
+                               else v) for k, v in opt.items()}
                     upd, sub = optimizer.update(grad[j], sub, leaf[j])
                     leaf[j] += upd
                     for k in trees:
-                        _get(opt[k], path)[j].copy_(sub[k])
+                        _local(_get(opt[k], path))[j].copy_(sub[k])
                     new_opt.update({k: v for k, v in sub.items()
                                     if k not in trees})
                 grads[i] = grad = None
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = gnorm
+        metrics = {k: _whole(v.detach()) for k, v in metrics.items()}
+        metrics["grad_norm"] = _whole(gnorm)
         return {"params": params, "opt": new_opt,
                 "step": state["step"] + 1}, metrics
 
@@ -114,7 +171,7 @@ def make_prefill_step(api, *, dtype=torch.bfloat16, cache_extra: int = 0):
     def prefill_step(params, batch):
         logits, cache = api.prefill(params, batch, dtype=dtype,
                                     cache_extra=cache_extra)
-        token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        token = _whole(torch.argmax(logits[:, -1, :], dim=-1)).to(torch.int32)
         return token[:, None], cache
     return prefill_step
 
@@ -125,6 +182,6 @@ def make_serve_step(api, *, long_context: bool = False,
         logits, cache = api.decode_step(params, cache, batch,
                                         long_context=long_context,
                                         dtype=dtype)
-        token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        token = _whole(torch.argmax(logits[:, -1, :], dim=-1)).to(torch.int32)
         return token[:, None], cache
     return serve_step

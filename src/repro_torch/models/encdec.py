@@ -19,6 +19,9 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
+from repro_torch.sharding import (constrain, constrain_attn_q,
+                                  embed_lookup, gather_for_compute,
+                                  merge_heads)
 
 
 def _init_layers(gen: torch.Generator, cfg, n: int, cross: bool) -> dict:
@@ -60,12 +63,13 @@ def encode(params, frames, cfg, *, q_chunk: int = 128, remat: bool = False):
     def layer(lp, x):
         h = L.apply_norm(x, lp["ln1"], cfg.norm)
         q, k, v = L._project_qkv(lp["attn"], h, cfg, positions)
+        q = constrain_attn_q(q)
         a = L.full_attention(q, k, v, causal=False, q_chunk=q_chunk)
-        y = x + a.reshape(b, f, -1) @ lp["attn"]["wo"].to(x.dtype)
+        y = x + merge_heads(a) @ lp["attn"]["wo"].to(x.dtype)
         h = L.apply_norm(y, lp["ln2"], cfg.norm)
         return y + L.mlp_block(lp["mlp"], h, cfg.mlp)
 
-    x = frames
+    x = constrain(frames, "batch", "seq", "embed")
     for lp in TF.unstack_layers(params["encoder"],
                                 cfg.encdec.encoder_layers):
         x = TF.remat_call(layer, remat, lp, x)
@@ -78,12 +82,14 @@ def decode_train(params, tokens, enc_out, cfg, *, q_chunk: int = 128,
     encoder's output.  Returns (hidden after the final norm, None or,
     with ``collect_kv``, (k, v, xk, xv) each stacked over the layers).
     ``remat``: as :func:`encode`."""
-    x = params["embed"][tokens.long()].to(enc_out.dtype)
+    x = embed_lookup(params, tokens).to(enc_out.dtype)
+    x = constrain(x, "batch", "seq", "embed")
     kvs = []
 
     def layer(lp, x, enc_out):
         h = L.apply_norm(x, lp["ln1"], cfg.norm)
-        a, (k, v) = L.attention_block(lp["attn"], h, cfg, q_chunk=q_chunk)
+        a, (k, v) = L.attention_block(lp["attn"], h, cfg, q_chunk=q_chunk,
+                                      shard_q=True)
         y = x + a
         h = L.apply_norm(y, lp["ln_x"], cfg.norm)
         ek, ev = L.cross_kv(lp["xattn"], enc_out, cfg)
@@ -150,9 +156,10 @@ def decode_step(params, cache, batch, cfg, *, dtype=torch.float32):
     against the self-attention cache (written in place) and the cross
     caches.  Returns (logits (B, 1, V) f32, cache)."""
     token, pos = batch["token"], int(batch["pos"])
-    x = params["embed"][token.long()].to(dtype)
+    x = embed_lookup(params, token).to(dtype)
     for i, lp in enumerate(TF.unstack_layers(params["decoder"],
                                              cfg.num_layers)):
+        lp = gather_for_compute(lp)
         h = L.apply_norm(x, lp["ln1"], cfg.norm)
         a, _ = L.attention_decode_block(lp["attn"], h, cfg, cache["k"][i],
                                         cache["v"][i], pos)

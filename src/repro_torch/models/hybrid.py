@@ -21,6 +21,8 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import transformer as TF
+from repro_torch.sharding import (constrain, embed_lookup,
+                                  gather_for_compute)
 
 
 def group_sizes(cfg) -> List[int]:
@@ -96,7 +98,8 @@ def forward(params, tokens, cfg, *, dtype=torch.float32, window: int = 0,
     {'kv': [(k, v) of each site], 'mamba': [each layer's mixer
     cache]}).  ``remat``: each shared block and mamba layer recomputed
     in the backward pass (``transformer.remat_call``)."""
-    x = params["embed"][tokens.long()].to(dtype)
+    x = constrain(embed_lookup(params, tokens).to(dtype), "batch",
+                  "seq", "embed")
     layers = TF.unstack_layers(params["mamba"], cfg.num_layers)
     kv_sites, mamba = [], []
 
@@ -175,7 +178,7 @@ def decode_step(params, cache, batch, cfg, *, window: int = 0,
     reference's cache leaves come out.  Returns (logits (B, 1, V) f32,
     cache)."""
     token, pos = batch["token"], int(batch["pos"])
-    x = params["embed"][token.long()].to(dtype)
+    x = embed_lookup(params, token).to(dtype)
     layers = TF.unstack_layers(params["mamba"], cfg.num_layers)
     mc = cache["mamba"]
     convs = []
@@ -185,9 +188,9 @@ def decode_step(params, cache, batch, cfg, *, window: int = 0,
                 p, h, cfg, cache["k"][site], cache["v"][site], pos,
                 window=window, ring=ring)
 
-        x, _ = _shared_block(sp, x, cfg, attend)
+        x, _ = _shared_block(gather_for_compute(sp), x, cfg, attend)
         for i in group:
-            lp = layers[i]
+            lp = gather_for_compute(layers[i])
             out, new = M.mixer_apply(lp, L.rms_norm(x, lp["ln"]["scale"]),
                                      cfg, {"state": mc["state"][i],
                                            "conv": mc["conv"][i]})

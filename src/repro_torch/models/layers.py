@@ -24,6 +24,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding import (constrain_attn_q, local_attention,
+                                  local_decode_attention, merge_heads,
+                                  split_heads, write_slot)
+
 NEG_INF = -1e30
 
 
@@ -124,14 +130,21 @@ def _gqa_out(p, v):
 
 
 def full_attention(q, k, v, *, causal: bool, window: int = 0,
-                   q_chunk: int = 128):
+                   q_chunk: int = 128, q0: int = 0):
     """Attention for Tq > 1 (prefill).
 
     q: (B, Tq, H, dh); k, v: (B, Tk, KV, dh).  Returns (B, Tq, H, dh).
     The query axis runs in chunks of ``q_chunk``: Tq must be at most
     ``q_chunk`` or a multiple of it, as in the reference.  ``window > 0``
-    masks to positions within [pos - window + 1, pos].
+    masks to positions within [pos - window + 1, pos]; the queries sit
+    at positions ``q0`` on.  A sharded q (a DTensor, under a sharding
+    policy) runs on each rank's shard (``sharding.local_attention``).
     """
+    if isinstance(q, DTensor):
+        return local_attention(
+            lambda ql, kl, vl, first: full_attention(
+                ql, kl, vl, causal=causal, window=window, q_chunk=q_chunk,
+                q0=first), q, k, v)
     b, tq, h, dh = q.shape
     tk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -150,12 +163,12 @@ def full_attention(q, k, v, *, causal: bool, window: int = 0,
         return _gqa_out(p, v).reshape(qc.shape[0], qc.shape[1], h, dh)
 
     if tq <= q_chunk:
-        return attend(qg, torch.arange(tq, device=q.device))
+        return attend(qg, torch.arange(q0, q0 + tq, device=q.device))
     if tq % q_chunk:
         raise ValueError(f"Tq={tq} not divisible by q_chunk={q_chunk}")
     return torch.cat([
         attend(qg[:, i:i + q_chunk],
-               torch.arange(i, i + q_chunk, device=q.device))
+               torch.arange(q0 + i, q0 + i + q_chunk, device=q.device))
         for i in range(0, tq, q_chunk)], dim=1)
 
 
@@ -169,23 +182,34 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0,
     q: (B, 1, H, dh); caches: (B, S, KV, dh); pos: the position of the
     current token (the number of tokens cached before it).  With
     ``ring=True`` the cache is a ring buffer of the last S positions.
+    A sharded cache (a DTensor) runs on each rank's shard, the softmax
+    merged across sharded positions
+    (``sharding.local_decode_attention``).
     """
-    b, _, h, dh = q.shape
-    s, kv = k_cache.shape[1], k_cache.shape[2]
-    g = h // kv
-    scale = 1.0 / math.sqrt(dh)
-    qg = q.reshape(b, 1, kv, g, dh)
-    scores = _gqa_scores(qg, k_cache, scale)     # (B, KV, G, 1, S)
-    slot = torch.arange(s, device=q.device)
-    if ring:
-        valid = slot < min(pos + 1, s)
-    else:
-        valid = slot <= pos
-        if window:
-            valid &= slot > pos - window
-    scores = torch.where(valid, scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    return _gqa_out(p, v_cache).reshape(b, 1, h, dh)
+    s = k_cache.shape[1]
+
+    def scores_of(q, k_cache, s0=0):
+        b, _, h, dh = q.shape
+        kv = k_cache.shape[2]
+        qg = q.reshape(b, 1, kv, h // kv, dh)
+        scores = _gqa_scores(qg, k_cache, 1.0 / math.sqrt(dh))
+        slot = torch.arange(s0, s0 + k_cache.shape[1], device=q.device)
+        if ring:
+            valid = slot < min(pos + 1, s)
+        else:
+            valid = slot <= pos
+            if window:
+                valid &= slot > pos - window
+        return torch.where(valid, scores, NEG_INF)   # (B, KV, G, 1, S)
+
+    if isinstance(k_cache, DTensor):
+        return local_decode_attention(
+            lambda ql, kl, vl, s0: (
+                scores_of(ql, kl, s0),
+                lambda p: _gqa_out(p, vl).reshape(ql.shape)),
+            q, k_cache, v_cache)
+    p = torch.softmax(scores_of(q, k_cache), dim=-1)
+    return _gqa_out(p, v_cache).reshape(q.shape)
 
 
 def cache_update(k_cache, v_cache, k_new, v_new, pos: int, *,
@@ -194,6 +218,9 @@ def cache_update(k_cache, v_cache, k_new, v_new, pos: int, *,
     in place.  A slot past the cache raises (the reference's update
     would clamp it onto the last slot): prefill leaves headroom."""
     idx = pos % k_cache.shape[1] if ring else pos
+    if isinstance(k_cache, DTensor):
+        return (write_slot(k_cache, k_new, idx),
+                write_slot(v_cache, v_new, idx))
     k_cache[:, idx] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, idx] = v_new[:, 0].to(v_cache.dtype)
     return k_cache, v_cache
@@ -235,9 +262,9 @@ def _project_qkv(p, x, cfg, positions):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(b, t, h, dh)
-    k = k.reshape(b, t, kv, dh)
-    v = v.reshape(b, t, kv, dh)
+    q = split_heads(q, h, dh)
+    k = split_heads(k, kv, dh)
+    v = split_heads(v, kv, dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -246,15 +273,20 @@ def _project_qkv(p, x, cfg, positions):
     return q, k, v
 
 
-def attention_block(p, x, cfg, *, window: int = 0, q_chunk: int = 128):
+def attention_block(p, x, cfg, *, window: int = 0, q_chunk: int = 128,
+                    shard_q: bool = False):
     """Causal self-attention over x (B, T, d) at positions 0..T-1.
-    Returns (out, (k, v)): the roped K and V are the prefill's cache."""
+    Returns (out, (k, v)): the roped K and V are the prefill's cache.
+    ``shard_q``: q takes the policy's attention sharding
+    (``sharding.constrain_attn_q``; nothing outside a policy)."""
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions)
+    if shard_q:
+        q = constrain_attn_q(q)
     out = full_attention(q, k, v, causal=True, window=window,
                          q_chunk=q_chunk)
-    out = out.reshape(b, t, -1) @ p["wo"].to(x.dtype)
+    out = merge_heads(out) @ p["wo"].to(x.dtype)
     return out, (k, v)
 
 
@@ -268,7 +300,7 @@ def attention_decode_block(p, x, cfg, k_cache, v_cache, pos: int, *,
     k_cache, v_cache = cache_update(k_cache, v_cache, k, v, pos, ring=ring)
     out = decode_attention(q, k_cache, v_cache, pos, window=window,
                            ring=ring)
-    out = out.reshape(b, 1, -1).to(x.dtype) @ p["wo"].to(x.dtype)
+    out = merge_heads(out).to(x.dtype) @ p["wo"].to(x.dtype)
     return out, (k_cache, v_cache)
 
 
@@ -286,8 +318,8 @@ def cross_attention_block(p, x, enc_k, enc_v, cfg):
     q = x @ p["wq"].to(x.dtype)
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
-    out = full_attention(q.reshape(b, t, h, dh), enc_k, enc_v, causal=False)
-    return out.reshape(b, t, h * dh) @ p["wo"].to(x.dtype)
+    out = full_attention(split_heads(q, h, dh), enc_k, enc_v, causal=False)
+    return merge_heads(out) @ p["wo"].to(x.dtype)
 
 
 def cross_kv(p, enc_out, cfg):

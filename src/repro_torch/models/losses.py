@@ -13,6 +13,8 @@ from typing import Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding import vocab_argmax, vocab_terms
+
 
 def _chunk_ce(x, head_w, head_b, targets, mask):
     """x: (B, C, d) hidden; returns (sum of the loss, of the mask, of
@@ -21,10 +23,9 @@ def _chunk_ce(x, head_w, head_b, targets, mask):
     logits = torch.einsum("bcd,dv->bcv", x, head_w.to(x.dtype)).float()
     if head_b is not None:
         logits = logits + head_b.float()
-    logz = torch.logsumexp(logits, dim=-1)                      # (B, C)
-    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    logz, tgt = vocab_terms(logits, targets)              # (B, C) each
     ce = (logz - tgt) * mask
-    correct = (logits.argmax(dim=-1) == targets.long()) * mask
+    correct = (vocab_argmax(logits) == targets.long()) * mask
     return ce.sum(), mask.sum(), correct.sum()
 
 

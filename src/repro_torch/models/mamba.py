@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import constrain
 
 NGROUPS = 1  # B and C shared across heads (zamba2's setting)
 
@@ -145,7 +146,8 @@ def mixer_apply(lp, x, cfg, cache=None):
     xbc, conv_state = _causal_conv(xbc, lp["conv_w"], lp["conv_b"],
                                    None if cache is None else cache["conv"])
     xs, bm, cm = _split_xbc(xbc, cfg)
-    xs = xs.reshape(b, t, n_heads, ssm.head_dim)
+    xs = constrain(xs.reshape(b, t, n_heads, ssm.head_dim), "batch", "seq",
+                   "heads", None)
     dt = F.softplus(dt.float() + lp["dt_bias"])            # (B, T, H)
     a_log_t = -dt * torch.exp(lp["a_log"])                 # negative
     y, state = ssd_chunked(xs, a_log_t, bm, cm, dt, ssm,

@@ -13,9 +13,10 @@ slot C or beyond is dropped.  Kept pairs are scattered into a
 then cut off; the experts' FFNs run on (B, E, C, d) as batched matrix
 products; each pair reads its expert's output back at
 min(slot, C − 1), weighed by its router weight times ``keep``, so a
-dropped pair adds 0 and gets a zero gradient.  The reference's
-``constrain`` calls are sharding hints and have no counterpart on one
-card.
+dropped pair adds 0 and gets a zero gradient.  Under a sharding policy
+the dispatch buffers are pinned batch-sharded (and expert-sharded in
+"ep" mode) at the reference's five ``constrain`` sites; outside one
+the calls do nothing.
 
 The aux terms are Switch-style: the load-balance loss
 E · Σ_e mean(probs)_e · mean(first choice is e), the router z-loss
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding import constrain, rowwise
 
 
 def init_moe(gen: torch.Generator, d: int, ff: int, moe_cfg,
@@ -74,6 +76,21 @@ def route(p, x, moe_cfg):
     return logits, probs, top_w, top_i, slot, keep, c
 
 
+def _dispatch(xr, flat_e, slot, e: int, c: int):
+    """The (B, E, C, d) buffer of the pairs xr (B, S·K, d) at their
+    experts' slots; slot C takes the dropped ones and is cut off."""
+    b, _, d = xr.shape
+    rows = torch.arange(b, device=xr.device)[:, None]
+    buf = xr.new_zeros((b, e, c + 1, d)).index_put((rows, flat_e, slot), xr)
+    return buf[:, :, :c]
+
+
+def _combine(out, flat_e, slot, c: int):
+    """Each pair's expert output (B, S·K, d), read at min(slot, C − 1)."""
+    rows = torch.arange(out.shape[0], device=out.device)[:, None]
+    return out[rows, flat_e, torch.clamp(slot, max=c - 1)]
+
+
 def moe_block(p, x, moe_cfg, mlp_kind: str = "swiglu"):
     """x (B, S, d) -> (y (B, S, d), aux: the weighted losses, the share
     of dropped pairs and the mean router probability of each expert)."""
@@ -81,12 +98,13 @@ def moe_block(p, x, moe_cfg, mlp_kind: str = "swiglu"):
     e, k = moe_cfg.num_experts, moe_cfg.top_k
     logits, probs, top_w, top_i, slot, keep, c = route(p, x, moe_cfg)
     flat_e = top_i.reshape(b, s * k)
-    rows = torch.arange(b, device=x.device)[:, None]
 
-    # scatter the pairs into (B, E, C + 1, d); slot C takes the dropped
+    # scatter the pairs into (B, E, C + 1, d), each rank its own rows
+    # under a policy; slot C takes the dropped
     xr = torch.repeat_interleave(x, k, dim=1)                # (B, S·K, d)
-    buf = x.new_zeros((b, e, c + 1, d)).index_put((rows, flat_e, slot), xr)
-    buf = buf[:, :, :c]                                      # (B, E, C, d)
+    xr = constrain(xr, "batch", None, None)
+    buf = rowwise(_dispatch, xr, flat_e, slot, e=e, c=c)
+    buf = constrain(buf, "batch", "expert", None, None)
 
     h = torch.einsum("becd,edf->becf", buf, p["wi0"].to(x.dtype))
     if mlp_kind == "swiglu":
@@ -98,9 +116,11 @@ def moe_block(p, x, moe_cfg, mlp_kind: str = "swiglu"):
     else:
         h = F.gelu(h, approximate="tanh")
     out = torch.einsum("becf,efd->becd", h, p["wo"].to(x.dtype))
+    out = constrain(out, "batch", "expert", None, None)
 
     # gather back at min(slot, C - 1), weighed by router weight · keep
-    gathered = out[rows, flat_e, torch.clamp(slot, max=c - 1)]
+    gathered = rowwise(_combine, out, flat_e, slot, c=c)
+    gathered = constrain(gathered, "batch", None, None)      # (B, S·K, d)
     w = top_w.reshape(b, s * k) * keep.float()
     y = (gathered.float() * w[..., None]).reshape(b, s, k, d).sum(dim=2)
 

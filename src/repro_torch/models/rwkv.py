@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
+from repro_torch.sharding import constrain, embed_lookup
 
 _MIX = 5  # r, k, v, w, g
 
@@ -142,6 +143,7 @@ def cmix_apply(p, x, x_prev):
     xk = x + xx * p["mu_k"].to(dt)
     xr = x + xx * p["mu_r"].to(dt)
     k = torch.square(torch.relu(xk @ p["key"].to(dt)))
+    k = constrain(k, "batch", "seq", "ff")
     kv = k @ p["value_out"].to(dt)
     return torch.sigmoid(xr @ p["receptance"].to(dt)) * kv, x[:, -1, :]
 
@@ -204,7 +206,8 @@ def forward(params, tokens, cfg, cache=None, *, dtype=torch.float32,
     if cache is None:
         cache = init_cache(cfg, tokens.shape[0], dtype=dtype,
                            device=tokens.device)
-    x = params["embed"][tokens.long()].to(dtype)
+    x = embed_lookup(params, tokens).to(dtype)
+    x = constrain(x, "batch", "seq", "embed")
     x = L.layer_norm(x, params["ln_in"]["scale"], params["ln_in"]["bias"])
     out = {"state": [], "xp_att": [], "xp_ffn": []}
     layers = TF.unstack_layers(params["layers"], cfg.num_layers)

@@ -28,6 +28,8 @@ keeps the activations.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -35,6 +37,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models.losses import chunked_lm_loss
+from repro_torch.sharding import (constrain, constrain_kv, current_policy,
+                                  embed_lookup, embed_table,
+                                  gather_for_compute, unbind_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -109,15 +114,24 @@ def unstack_layers(layers: dict, n: int) -> list:
     """The per-layer param dicts of a stacked tree: each stacked leaf
     split once into ``n`` views (``torch.unbind``)."""
     split = {k: unstack_layers(v, n) if isinstance(v, dict)
-             else torch.unbind(v, 0) for k, v in layers.items()}
+             else unbind_layers(v) for k, v in layers.items()}
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
+def _gathered(fn, params, *args):
+    return fn(gather_for_compute(params), *args)
+
+
 def remat_call(fn, remat: bool, *args):
-    """``fn(*args)``; with ``remat`` under autograd its activations are
-    recomputed in the backward pass rather than kept (the reference's
-    ``jax.checkpoint`` of each layer): the same numbers, one layer's
-    activations live at a time."""
+    """``fn(*args)``, ``args[0]`` the layer's params; with ``remat``
+    under autograd its activations are recomputed in the backward pass
+    rather than kept (the reference's ``jax.checkpoint`` of each layer):
+    the same numbers, one layer's activations live at a time.  Under a
+    sharding policy the params are gathered for compute inside the
+    call (``sharding.gather_for_compute``), so that the gathered copy
+    is one layer's and is gathered again in the backward pass."""
+    if current_policy() is not None:
+        fn = functools.partial(_gathered, fn)
     if remat and torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False,
                           preserve_rng_state=False)
@@ -125,9 +139,15 @@ def remat_call(fn, remat: bool, *args):
 
 
 def head_weights(params, cfg):
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    """The head's (d, V) weight and bias; under a sharding policy the
+    weight gathered for compute, d whole and V over the tensor-parallel
+    axis, so that the logits come out vocab-sharded, never partial
+    sums."""
+    w = (embed_table(params).T
+         if cfg.tie_embeddings else
+         gather_for_compute(params["lm_head"]["w"], "lm_head/w"))
     b = params.get("lm_head", {}).get("b") if cfg.lm_head_bias else None
-    return w, b
+    return constrain(w, None, "vocab"), b
 
 
 def head_logits(params, x, cfg):
@@ -156,11 +176,11 @@ def lm_loss(params, x, batch, cfg, loss_chunk: int = 512):
 
 
 def _embed(params, tokens, cfg, dtype=torch.float32):
-    x = params["embed"][tokens.long()].to(dtype)
+    x = embed_lookup(params, tokens).to(dtype)
     if cfg.scale_embeddings:
         # √d_model rounded to dtype first, as jnp.asarray(d ** 0.5, dtype)
         x = x * float(torch.tensor(np.float32(cfg.d_model ** 0.5)).to(dtype))
-    return x
+    return constrain(x, "batch", "seq", "embed")
 
 
 def _ffn(lp, h, cfg):
@@ -171,13 +191,21 @@ def _ffn(lp, h, cfg):
 
 
 def _layer_apply(lp, x, cfg, q_chunk):
+    """One layer.  Beside the reference's constraints the residual
+    stream is pinned to ("batch", "seq", "embed") after each block: the
+    row-parallel products leave partial sums, which GSPMD's propagation
+    reduces there and DTensor, op by op, would carry on (and gather the
+    next weight to meet them in the backward pass)."""
     h = L.apply_norm(x, lp["ln1"], cfg.norm)
     a, kv = L.attention_block(lp["attn"], h, cfg,
-                              window=cfg.sliding_window, q_chunk=q_chunk)
-    x = x + a
+                              window=cfg.sliding_window, q_chunk=q_chunk,
+                              shard_q=True)
+    x = constrain(x + a, "batch", "seq", "embed")
     h = L.apply_norm(x, lp["ln2"], cfg.norm)
+    if cfg.moe is None:
+        h = constrain(h, "batch", "seq", "embed")
     m, aux = _ffn(lp, h, cfg)
-    return x + m, kv, aux
+    return constrain(x + m, "batch", "seq", "embed"), kv, aux
 
 
 def forward(params, tokens, cfg, *, extra_embeds=None, dtype=torch.float32,
@@ -193,12 +221,14 @@ def forward(params, tokens, cfg, *, extra_embeds=None, dtype=torch.float32,
         proj = params["projector"]
         pref = (extra_embeds.to(dtype) @ proj["w"].to(dtype)
                 + proj["b"].to(dtype))
-        x = torch.cat([pref, x], dim=1)
+        x = constrain(torch.cat([pref, x], dim=1), "batch", "seq", "embed")
     kvs, auxs = [], []
     for lp in unstack_layers(params["layers"], cfg.num_layers):
         x, kv, aux = remat_call(lambda lp, x: _layer_apply(lp, x, cfg,
                                                            q_chunk),
                                 remat, lp, x)
+        if not torch.is_grad_enabled():    # a prefill's cache, as decode's
+            kv = tuple(constrain_kv(t) for t in kv)
         kvs.append(kv)
         auxs.append(aux)
     aux = (None if cfg.moe is None else
@@ -285,6 +315,7 @@ def decode_step(params, cache, batch, cfg, *, window: int = 0,
     x = _embed(params, token, cfg, dtype)
     layers = unstack_layers(params["layers"], cfg.num_layers)
     for i, lp in enumerate(layers):
+        lp = gather_for_compute(lp)
         h = L.apply_norm(x, lp["ln1"], cfg.norm)
         a, _ = L.attention_decode_block(
             lp["attn"], h, cfg, cache["k"][i], cache["v"][i], pos,

@@ -1,16 +1,21 @@
-"""Roofline terms of one step on one NVIDIA H100.
+"""Roofline terms of one step on an NVIDIA H100, per card.
 
-The port of the reference's ``roofline/analysis.py`` for one card.  Its
-three terms, in seconds:
+The port of the reference's ``roofline/analysis.py``.  Its three terms,
+in seconds:
 
   compute    = FLOPs / the peak of the step's dtype
   memory     = HBM bytes / HBM bandwidth
-  collective = collective bytes / link bandwidth (0 on one card)
+  collective = collective bytes (all-reduce weighted 2x) / link
+               bandwidth (0 on one card)
 
-The FLOPs and bytes come from ``roofline/cost.py`` (a count of one step
-on the ``meta`` device), where the reference parses XLA's HLO.  The
-reference's ``parse_collectives`` has no counterpart: the port runs on
-one card and has no HLO, so it has no collectives to read.
+The FLOPs, bytes and collective bytes come from ``roofline/cost.py`` (a
+count of one step on the ``meta`` device, under a device mesh at one
+rank's shapes), where the reference parses XLA's HLO:
+``cost.MeshCounter`` stands in for ``parse_collectives``, with its keys
+and weights.  The link term takes NVLink's rate for every collective;
+a 16-wide 'model' axis spans two 8-card NVLink nodes, whose traffic
+between them crosses the slower network, so the term is optimistic
+there.
 
 ``model_flops`` (6·N·D for train, 2·N·D for a forward; N the active
 params of a token) and ``_active_params`` are the reference's, in the

@@ -46,6 +46,20 @@ def test_no_jax_and_no_reference_imports():
     assert not bad, bad
 
 
+def test_torch_testing_internal_only_for_the_fake_backend():
+    """``torch.testing._internal`` (the fake process group's store) is
+    imported by ``launch/mesh.py`` alone, inside ``planning_world``, and
+    importing the multi-device modules starts no process group."""
+    users = sorted(str(p.relative_to(ROOT)) for p in _port_files()
+                   for mod in _imported_modules(p)
+                   if mod.startswith("torch.testing"))
+    assert users == ["src/repro_torch/launch/mesh.py"], users
+    import torch.distributed as dist
+    import repro_torch.launch.mesh  # noqa: F401
+    import repro_torch.sharding  # noqa: F401
+    assert not dist.is_initialized()
+
+
 def test_kernel_modules_import_without_triton_or_nvcc(tmp_path):
     """A fresh interpreter with ``triton`` blocked and no ``nvcc`` on
     PATH imports every kernel module and builds nothing."""
@@ -244,9 +258,8 @@ def test_scenario_entry_points_raise_without_cuda(no_cuda):
 
 
 def test_substrate_entry_points_raise_without_cuda(no_cuda):
-    """The sweep CLI and its bench, the local multi-host mode and the
-    train state default to the card; the multi-host mode without
-    ``--local`` is not ported."""
+    """The sweep CLI and its bench, the multi-host mode (local, and on
+    the production mesh) and the train state default to the card."""
     from repro_torch.configs import get_config
     from repro_torch.launch import multihost, sweep
     from repro_torch.launch.steps import make_init_state
@@ -265,11 +278,10 @@ def test_substrate_entry_points_raise_without_cuda(no_cuda):
         lambda: bench_sweep(spec),
         lambda: serial_seconds(spec, "mixed_80_20", "hics"),
     ]
+    calls.append(lambda: multihost.main(["--task", "train"]))
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
-    with pytest.raises(NotImplementedError, match="one card"):
-        multihost.main(["--task", "train"])
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_at_launch():

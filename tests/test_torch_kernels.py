@@ -507,8 +507,10 @@ def test_decode_plan_takes_every_group_and_width():
     is a multiple of 8 up to 512 gets chunks of gc heads that cover G
     with fewer than GP·E <= 32 register values a lane and shared memory
     within the limit, f32 and bf16; G 16 at dh 128 is two chunks of 8,
-    G 24 at dh 64 two of 12; a dh off the 16-byte rows is refused with
-    the reason."""
+    G 24 at dh 64 two of 12; a dh off the 16-byte rows (4, 36, 100,
+    260, and odd ones) gets a plan whose ring rows are padded to 8
+    values and copied 4 bytes at a time (f32) or 2 (bf16);
+    a dh past 512 or below 1 is refused with the reason."""
     for g, dh in [(8, 128), (7, 128), (6, 128), (4, 128), (1, 256),
                   (1, 112), (2, 64), (16, 64)]:
         for elt in (2, 4):
@@ -534,8 +536,19 @@ def test_decode_plan_takes_every_group_and_width():
     assert da.decode_plan(1, 512, 4).stages == 1
     assert da.decode_plan(1, 320, 4).stages == 2
     assert da.decode_plan(1, 512, 2).stages == 3
-    for dh in (100, 4, 520, 0):
-        with pytest.raises(ValueError, match="16-byte chunks"):
+    for dh in (4, 36, 100, 260, 1, 37, 511):
+        for g in (1, 8):
+            for elt in (2, 4):
+                plan = da.decode_plan(g, dh, elt)
+                assert not plan.fixed and 32 * plan.e >= dh
+                assert plan.gp * plan.e <= 32
+                assert plan.copy_bytes == (4 if elt == 4 else 2)
+                assert da.ring_row(dh) % 8 == 0
+                assert 0 < da.ring_row(dh) - dh < 8
+                assert da.smem_bytes(g, dh, elt) <= da.SMEM_LIMIT
+    assert da.decode_plan(2, 128, 4).copy_bytes == 16
+    for dh in (520, 0):
+        with pytest.raises(ValueError, match="from 1 to 512"):
             da.decode_plan(2, dh, 4)
 
 
@@ -547,6 +560,15 @@ def test_decode_chunked_split_plain_vs_pallas():
     the sums differs), a length-0 row exactly 0."""
     each(_chunked_case, [(4, 80), (4, 96), (4, 192), (4, 512), (16, 128),
                          (24, 64)], [jnp.float32, jnp.bfloat16])
+
+
+def test_decode_any_dh_split_plain_vs_pallas():
+    """A dh off the 16-byte rows, as the TPU kernel takes: the plain
+    version of the split at the plan's gc, dh 4, 36, 100 and 260 at G 1
+    and 8, f32 and bf16 K/V, within 5e-5 of the Pallas kernel in
+    interpret mode, a length-0 row exactly 0."""
+    each(_chunked_case, [(g, dh) for dh in (4, 36, 100, 260)
+                         for g in (1, 8)], [jnp.float32, jnp.bfloat16])
 
 
 def _chunked_case(g_dh, dtype):

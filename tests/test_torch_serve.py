@@ -34,6 +34,7 @@ from repro.models import get_model as jax_model
 from repro.models import layers as JL
 from repro_torch.backend import set_precision
 from repro_torch.configs import get_config
+from repro_torch.kernels import decode_attention as da
 from repro_torch.launch import serve
 from repro_torch.models import get_model
 from repro_torch.models import layers as TL
@@ -74,6 +75,27 @@ def _decode_attention_case(shape, pos, window_ring):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
                                atol=BF16_STEP, rtol=BF16_STEP)
+
+
+def test_decode_kernel_plan_and_plain_take_any_dh():
+    """The serve path's decode kernel at a dh off the 16-byte rows (4,
+    36, 100, 260), G 1 and 8: ``decode_plan`` lays it out, and on the
+    CPU the kernel's entry point (its plain version) agrees with the
+    model's own decode attention on an f32 cache within 1e-5."""
+    for dh in (4, 36, 100, 260):
+        for g in (1, 8):
+            plan = da.decode_plan(g, dh, 2)
+            assert plan.copy_bytes == 2 and not plan.fixed
+            b, s, kv, pos = 2, 40, 2, 29
+            rng = np.random.default_rng(dh + g)
+            q = torch.tensor(rng.normal(size=(b, 1, kv * g, dh)),
+                             dtype=torch.float32)
+            k, v = (torch.tensor(rng.normal(size=(b, s, kv, dh)),
+                                 dtype=torch.float32) for _ in range(2))
+            got = da.decode_attention(q[:, 0], k, v, pos + 1)
+            want = TL.decode_attention(q, k, v, pos)[:, 0]
+            np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                       atol=1e-5, rtol=1e-5)
 
 
 def _models(sliding_window=0):

@@ -58,6 +58,7 @@ reference's compiles and the dry run's meta passes.
 import dataclasses
 import functools
 import json
+import socket
 
 import numpy as np
 import pytest
@@ -419,3 +420,92 @@ def test_sweep_cli_matches_run_sweep(tmp_path):
         assert sorted(cell) == sorted(next(iter(ref["grid"].values())))
     assert (tmp_path / "t.jsonl").stat().st_size > 0
 
+
+
+def test_mesh_dry_run_fsdp_at_two_reduced_layers():
+    """The dry run on the 16×16 mesh under fsdp (a worker process with a
+    fake world of 256 ranks), qwen2.5-3b reduced to 2 layers at
+    train_4k: ``chips`` 256, all-gathers (the layers gathered for
+    compute) and reduce-scatters (their gradients) counted, and the
+    state a chip holds 1/256 of each leaf the specs shard 256 ways and
+    the whole of each leaf they replicate (params, adam's m and v; the
+    two scalars whole), no planning world left behind."""
+    from repro_torch import sharding
+    from repro_torch.launch import mesh as meshes
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(),
+                              num_layers=2)
+    rec = dryrun.mesh_combo_in_worker("qwen2.5-3b", "train_4k", "pod1",
+                                      "fsdp", cfg=cfg)
+    assert rec["status"] == "ok" and rec["chips"] == 256
+    assert rec["mesh"] == "pod1" and rec["policy"] == "fsdp"
+    coll = rec["collectives_bytes"]
+    assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
+    assert coll["total_weighted"] == pytest.approx(
+        sum(v for k, v in coll.items() if k != "total_weighted")
+        + coll["all-reduce"])
+    r = rec["roofline"]
+    assert r["collective_s"] == pytest.approx(
+        coll["total_weighted"] / analysis.HW_H100.link_bw)
+    with meshes.planning_world(256):
+        policy = sharding.ShardingPolicy(meshes.make_production_mesh(),
+                                         "fsdp")
+        params = get_model(cfg).init(device="meta")
+        specs = sharding.param_pspecs(params, policy)
+        leaves = tree_leaves(params)
+        spec_leaves = [s for _, s in sorted(_spec_items(specs))]
+    per_chip = 0
+    for t, spec in zip(leaves, spec_leaves):
+        n = t.numel() * 4
+        assert all(e in (None, ("data", "model")) for e in spec)
+        per_chip += n // 256 if any(spec) else n
+    assert rec["state_bytes_per_chip"] == 3 * per_chip + 4 + 4
+    assert rec["state_bytes_global"] == 3 * sum(
+        t.numel() * 4 for t in leaves) + 4 + 4
+    assert not torch.distributed.is_initialized()
+
+
+def _spec_items(tree, prefix=""):
+    """(path, spec) of a spec tree, paths sorted as ``tree_leaves``
+    sorts keys."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in _spec_items(tree[k], prefix + "/" + k)]
+    return [(prefix, tree)]
+
+
+def test_dry_run_cli_mesh_record_names(tmp_path):
+    """``--mesh``/``--policy`` name a record ``<arch>__<shape>__<mesh>``
+    (2d) or ``...__<policy>``; without ``--mesh`` the one-card name."""
+    assert dryrun.record_path(tmp_path, "a", "s").name == "a__s.json"
+    assert dryrun.record_path(tmp_path, "a", "s", "pod1").name == \
+        "a__s__pod1.json"
+    assert dryrun.record_path(tmp_path, "a", "s", "pod2", "fsdp").name == \
+        "a__s__pod2__fsdp.json"
+    assert dryrun.policy_for("auto", "train_4k") == "fsdp"
+    assert dryrun.policy_for("auto", "decode_32k") == "2d"
+
+
+def test_multihost_without_local(monkeypatch):
+    """``multihost`` without ``--local``: ``--task dryrun`` plans the
+    full config on a fake world of the mesh's size with no rendezvous
+    and prints the mesh dry run's record (granite-moe decode_32k under
+    fsdp on 16×16); ``--task train`` on a world of 1 (gloo, from
+    torchrun's environment) raises, naming the mesh's 256 ranks and the
+    world's 1, and leaves no process group."""
+    from repro_torch.launch import multihost
+    rec = multihost.main(["--task", "dryrun", "--arch",
+                          "granite-moe-1b-a400m", "--shape", "decode_32k",
+                          "--policy", "fsdp"])
+    assert rec["status"] == "ok" and rec["chips"] == 256
+    assert rec["collectives_bytes"]["all-gather"] > 0
+    assert not torch.distributed.is_initialized()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+                 "RANK": "0", "WORLD_SIZE": "1"}.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(ValueError, match=r"needs 256 ranks.* has 1"):
+        multihost.main(["--task", "train", "--device", "cpu", "--arch",
+                        "qwen2.5-3b"])
+    assert not torch.distributed.is_initialized()
